@@ -9,8 +9,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: compile every kernel of the main path from ``windtpu_torch/ops/csrc``
-   (nvcc, one process per source, all started together), print the
-   compile seconds and ``-Xptxas -v``;
+   with nvcc, print the compile seconds and ``-Xptxas -v``;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the main path's shape (bf16 and f32) and at a ragged shape, then time
    the kernel, the plain version and the nearest PyTorch library call with
@@ -74,20 +73,12 @@ def device_line() -> str:
 
 
 def build_all():
-    from concurrent.futures import ThreadPoolExecutor
-
     from windtpu_torch.ops import convlstm
 
-    build_fns = {"convlstm_seq": convlstm.build_library}
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build_fns)) as pool:
-        futures = {k: pool.submit(fn) for k, fn in build_fns.items()}
-        infos = {k: f.result() for k, f in futures.items()}
-    for name, info in infos.items():
-        print(f"{name}: {info.path.name} built={info.built} "
-              f"nvcc {info.seconds:.1f} s")
-        print(info.log.strip())
-    print(f"build wall {time.perf_counter() - t0:.1f} s")
+    info = convlstm.build_library()
+    print(f"convlstm_seq: {info.path.name} built={info.built} "
+          f"nvcc {info.seconds:.1f} s")
+    print(info.log.strip())
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -118,10 +109,11 @@ def convlstm_inputs(shape, dtype, seed: int):
 
 
 def convlstm_bound(shape, itemsize: int):
-    """Least time of one sequence: every step's 3x3 conv on the tensor
-    cores (bf16 peak) vs zx read once, rk read once, y written once."""
+    """Least time of one sequence: the T-1 recurrent 3x3 convs on the tensor
+    cores (bf16 peak; h_{-1} = 0, so step 0 has none) vs zx read once, rk
+    read once, y written once."""
     b, t, h, w, f = shape
-    flops = 2.0 * b * t * h * w * 9 * f * 4 * f
+    flops = 2.0 * b * (t - 1) * h * w * 9 * f * 4 * f
     nbytes = itemsize * (b * t * h * w * 5 * f + 9 * f * 4 * f)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -159,16 +151,16 @@ def kernel_phase() -> dict:
     b, t, h, w, f = MAIN_SHAPE
     ms = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
     plain_ms = cuda_ms(lambda: convlstm_seq_plain(zx, rk), iters=5, warmup=1)
-    # Library yardstick, conv part only: the T recurrent 3x3 convs as cuDNN
-    # calls on channels-last bf16 (no single PyTorch call computes the
-    # whole recurrence).
+    # Library yardstick, conv part only: the T-1 recurrent 3x3 convs as
+    # cuDNN calls on channels-last bf16 (no single PyTorch call computes
+    # the whole recurrence).
     hx = torch.randn(b, f, h, w, device="cuda", dtype=torch.bfloat16
                      ).contiguous(memory_format=torch.channels_last)
     wk = rk.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
 
     def library():
-        for _ in range(t):
+        for _ in range(t - 1):
             F.conv2d(hx, wk, padding=1)
 
     library_ms = cuda_ms(library, iters=20)

@@ -158,10 +158,20 @@ def test_port_imports_nothing_of_jax():
 
 def test_entry_points_default_to_the_card(monkeypatch, networks):
     from windtpu_torch import cli as tcli
+    from windtpu_torch.core.config import InferenceConfig
+    from windtpu_torch.infer.engine import make_tiled_predictor
+    from windtpu_torch.infer.tiling import plan_tiling
+    from windtpu_torch.models.generator import init_generator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.get_network()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_generator(ModelConfig(**TINY))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_tiled_predictor(ModelConfig(**TINY), InferenceConfig(),
+                             plan_tiling(20, 20, 3, 16, 3, 0.3),
+                             networks[1].generator)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.downscale(*_inputs(tds), network=networks[1])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -219,6 +229,11 @@ def test_cli_with_bundled_weights_matches_jax(tmp_path, monkeypatch):
         assert a.shape == b.shape
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
         # bf16 through the whole generator: flax rounds every op (and the
-        # scan's gates) to bf16, the port keeps the gate math in f32.
-        scale = np.nanmax(np.abs(b))
-        assert np.nanmax(np.abs(a - b)) <= 5e-2 * scale
+        # scan's gates) to bf16, the port keeps the gate math in f32.  The
+        # measured gap here (ROADMAP C) is at most 0.077 m/s and 0.0036 m/s
+        # on average at an output scale of 18 m/s; the limits leave about
+        # 2.5x room, so a localized fault moves the max and a broad one the
+        # mean.
+        diff = np.abs(a - b)
+        assert np.nanmax(diff) <= 0.2, np.nanmax(diff)
+        assert np.nanmean(diff) <= 0.01, np.nanmean(diff)

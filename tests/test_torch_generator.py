@@ -183,7 +183,7 @@ def test_bundled_flagship_weights_match_flax():
 
 
 def test_bundled_weights_carry_every_key():
-    gen = init_generator(ModelConfig(), seed=0)
+    gen = init_generator(ModelConfig(), seed=0, device="cpu")
     load_generator_npz(BUNDLED_GENERATOR, gen)
     with np.load(BUNDLED_GENERATOR) as data:
         flat = {k: data[k] for k in data.files}

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from windtpu_torch.core.config import InferenceConfig, ModelConfig
+from windtpu_torch.core.device import resolve_device
 from windtpu_torch.infer.tiling import TilingPlan
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -74,7 +75,7 @@ def _patch_indices(origins: np.ndarray, img: int, seq: int):
 
 
 def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
-                         plan: TilingPlan, apply_fn: ApplyFn, device="cpu"):
+                         plan: TilingPlan, apply_fn: ApplyFn, device=None):
     """Build the single-device predictor for one tiling plan:
     ``run(field, generator) -> (prediction, counts)``.
 
@@ -85,8 +86,9 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
     ``apply_fn(patches, noise) -> preds`` runs the network: the generator
     module, or a stand-in that tests the tiling and stitch alone.  The
     origins, validity weights, coverage map and gather indices are built
-    once here, on the host, and moved to ``device``."""
-    device = torch.device(device)
+    once here, on the host, and moved to ``device`` (``None`` means the
+    card; see ``core.device.resolve_device``)."""
+    device = resolve_device(device)
     img, seq, crop = plan.image_size, plan.sequence_length, icfg.border_crop
     origins_g, weights_np = _grouped_origins(plan, icfg.group_size)
     weights = torch.as_tensor(weights_np, device=device)

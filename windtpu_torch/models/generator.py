@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from windtpu_torch.core.config import ModelConfig
+from windtpu_torch.core.device import resolve_device
 from windtpu_torch.models import layers as L
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -100,10 +101,11 @@ class Generator(nn.Module):
 
 @torch.no_grad()
 def init_generator(config: ModelConfig, seed: int = 0,
-                   device="cpu") -> Generator:
+                   device=None) -> Generator:
     """A generator with random weights drawn from ``seed``: Glorot-uniform
     kernels, zero biases, unit BatchNorm, unit forget bias, Gaussian
-    spectral-norm ``u`` (the flax initializers' scales)."""
+    spectral-norm ``u`` (the flax initializers' scales), on ``device``
+    (``None`` means the card; see ``core.device.resolve_device``)."""
     model = Generator(config)
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
@@ -125,4 +127,4 @@ def init_generator(config: ModelConfig, seed: int = 0,
             buf.fill_(1.0)
         else:
             buf.zero_()
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()

@@ -26,7 +26,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -112,18 +111,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def build_library(build_dir: Optional[Path] = None) -> BuildInfo:
+def build_library() -> BuildInfo:
     """Compile ``csrc/convlstm.cu`` into a shared library unless a library
     for this exact source and these flags is already there."""
-    build_dir = Path(build_dir or _BUILD_DIR)
     source = _SOURCE.read_bytes()
     key = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = build_dir / f"convlstm_{key[:16]}.so"
+    lib = _BUILD_DIR / f"convlstm_{key[:16]}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, log, 0.0, False)
-    build_dir.mkdir(parents=True, exist_ok=True)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
     t0 = time.perf_counter()

@@ -17,10 +17,10 @@
 // F), scratch owned by the caller.  The caller loops over t.
 //
 // What bounds it.  At the generator's shape (B=16, T=24, 24x24, F=128, bf16)
-// one sequence is 2*B*T*H*W*9F*4F = 260.9 GFLOP against 284 MB of compulsory
-// traffic (zx read once, y written once, rk once): 0.264 ms at 989 TFLOP/s
-// bf16 versus 0.085 ms at 3.35 TB/s.  It is compute-bound, with a bound of
-// 0.264 ms per sequence.
+// one sequence is 2*B*(T-1)*H*W*9F*4F = 250.0 GFLOP (h_{-1} = 0, so step 0
+// has no product) against 284 MB of compulsory traffic (zx read once, y
+// written once, rk once): 0.253 ms at 989 TFLOP/s bf16 versus 0.085 ms at
+// 3.35 TB/s.  It is compute-bound, with a bound of 0.253 ms per sequence.
 //
 // What the design does about it.  The TPU kernel keeps (h, c) in VMEM across
 // a sequential grid; on the card blocks run in no order and h + c at the
