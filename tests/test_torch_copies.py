@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's pure-numpy modules stay equal to
 their originals: tiling (bit for bit), the high-res template and regridding,
-and the NetCDF / GeoTIFF I/O (files written by one side read by the
-other)."""
+the NetCDF / GeoTIFF I/O (files written by one side read by the other),
+and the numpy metric oracles."""
 
 import dataclasses
 import itertools
@@ -13,10 +13,12 @@ from windtpu.infer import template as jtemplate
 from windtpu.infer import tiling as jtiling
 from windtpu.io import dataset as jds
 from windtpu.io import geotiff as jgeo
+from windtpu.metrics import oracles as joracles
 from windtpu_torch.infer import template as ttemplate
 from windtpu_torch.infer import tiling as ttiling
 from windtpu_torch.io import dataset as tds
 from windtpu_torch.io import geotiff as tgeo
+from windtpu_torch.metrics import oracles as toracles
 
 
 @pytest.mark.parametrize("h,w", [(96, 96), (97, 203), (546, 756),
@@ -98,3 +100,35 @@ def test_netcdf_and_geotiff_round_trip_across_packages(tmp_path):
     for name in ("j.tif", "t.tif"):
         _assert_datasets_equal(tgeo.open_rasterio(tmp_path / name),
                                jgeo.open_rasterio(tmp_path / name))
+
+
+ORACLES = ["wind_speed_weighted_rmse_np", "extreme_weighted_rmse_np",
+           "wind_speed_rmse_np", "angular_cosine_distance_np",
+           "log_spectral_distance_np", "log_spectral_distance_fullfft_np",
+           "rmse_np", "tanh_wind_speed_weighted_rmse_np",
+           "cosine_similarity_np", "spatial_ks_bruteforce_np"]
+
+
+def test_oracles_module_has_the_same_functions():
+    public = lambda mod: sorted(  # noqa: E731
+        n for n in dir(mod) if n.endswith("_np") and not n.startswith("_"))
+    assert public(toracles) == public(joracles) == sorted(ORACLES)
+    assert toracles.EPSILON == joracles.EPSILON
+
+
+@pytest.mark.parametrize("name", ORACLES)
+def test_metric_oracles_equal(name):
+    rng = np.random.RandomState(ORACLES.index(name))
+    shape = (1, 2, 9, 8, 2) if name.startswith("spatial_ks") else (
+        2, 3, 6, 7, 2)
+    real = (4 * rng.standard_normal(shape)).astype(np.float32)
+    fake = (4 * rng.standard_normal(shape)).astype(np.float32)
+    if name in ("tanh_wind_speed_weighted_rmse_np", "cosine_similarity_np"):
+        args = ((real[..., 0], real[..., 1]), (fake[..., 0], fake[..., 1]))
+        kw = {}
+    elif name.startswith("spatial_ks"):
+        args, kw = (real, fake), dict(patch_size=3, num_points=11)
+    else:
+        args, kw = (real, fake), {}
+    np.testing.assert_array_equal(getattr(toracles, name)(*args, **kw),
+                                  getattr(joracles, name)(*args, **kw))

@@ -23,7 +23,11 @@ from windtpu_torch.api import BUNDLED_GENERATOR
 from windtpu_torch.core.config import ModelConfig
 from windtpu_torch.models import layers as L
 from windtpu_torch.models.generator import Generator, init_generator
-from windtpu_torch.weights import load_flax_variables, load_generator_npz
+from windtpu_torch.weights import (
+    export_flax_variables,
+    load_flax_variables,
+    load_generator_npz,
+)
 
 torch.set_num_threads(2)
 
@@ -209,3 +213,161 @@ def test_weights_carry_rejects_mismatch(fault):
         flat["batch_stats/mid/bias"] = flat.pop("params/mid/bias")
     with pytest.raises(ValueError):
         load_flax_variables(Generator(ModelConfig()), flat)
+
+
+# ---- the training half of the layers ---------------------------------------
+
+def test_spectral_norm_update_value_new_u_and_gradient():
+    rng = np.random.RandomState(8)
+    kernel = rng.standard_normal((3, 3, 5, 7)).astype(np.float32)
+    u = rng.standard_normal(7).astype(np.float32)
+    g = rng.standard_normal((3, 3, 5, 7)).astype(np.float32)
+    jmod = JL.SpectralNorm(update_stats=True)
+    variables = {"spectral_stats": {"u": jnp.asarray(u)}}
+
+    def apply(k):
+        out, mut = jmod.apply(variables, k, mutable=["spectral_stats"])
+        return out, mut["spectral_stats"]["u"]
+
+    (want, want_u), vjp = jax.vjp(apply, jnp.asarray(kernel))
+    want_grad, = vjp((jnp.asarray(g), jnp.zeros(7)))
+
+    sn = L.SpectralNorm(7)
+    sn.u.copy_(torch.from_numpy(u))
+    tk = torch.from_numpy(kernel).requires_grad_()
+    got = sn(tk, update_stats=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(sn.u.numpy(), np.asarray(want_u), rtol=0,
+                               atol=1e-6)
+    assert not sn.u.requires_grad
+    # The power step carries no gradient: sigma is differentiable through
+    # the kernel alone, as with the JAX layer's stop_gradient.
+    got_grad, = torch.autograd.grad(got, tk, torch.from_numpy(g))
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-4, atol=1e-5)
+    # A second call starts from the updated u.
+    again = sn(tk, update_stats=True)
+    assert not torch.equal(again, got)
+
+
+def test_spectral_norm_update_between_two_uses_keeps_the_double_backward():
+    sn = L.SpectralNorm(4)
+    sn.u.copy_(torch.randn(4, generator=torch.Generator().manual_seed(0)))
+    k = torch.randn(3, 3, 2, 4, generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    x = torch.randn(5, requires_grad=True)
+    first = (sn(k, update_stats=True).sum() * x).sum()
+    gx, = torch.autograd.grad(first, x, create_graph=True)
+    second = sn(k, update_stats=True).sum()     # overwrites u in between
+    (gx.pow(2).sum() + second).backward()
+    assert torch.isfinite(k.grad).all() and float(k.grad.abs().max()) > 0
+
+
+def test_time_batch_norm_training_twice_in_a_row():
+    rng = np.random.RandomState(9)
+    jmod = JL.TimeBatchNorm(use_running_average=False)
+    x0 = rng.standard_normal((2, 3, 5, 5, 6)).astype(np.float32)
+    flat = flat_random(jmod.init(jax.random.key(0), jnp.asarray(x0)), 10)
+    tmod = load_flax_variables(L.TimeBatchNorm(6), flat)
+    variables = to_tree(flat)
+    for i in range(2):
+        x = (2.0 * rng.standard_normal((2, 3, 5, 5, 6)) + 1.0).astype(
+            np.float32)
+        g = rng.standard_normal(x.shape).astype(np.float32)
+
+        def apply(params, inp):
+            return jmod.apply({**variables, "params": params}, inp,
+                              mutable=["batch_stats"])
+
+        (want, mut), vjp = jax.vjp(apply, variables["params"],
+                                   jnp.asarray(x))
+        zeros = jax.tree_util.tree_map(jnp.zeros_like, mut)
+        want_dp, want_dx = vjp((jnp.asarray(g), zeros))
+        variables = {**variables, **mut}
+
+        tx = torch.from_numpy(x).requires_grad_()
+        got = tmod(tx, train=True)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        # Running statistics: biased variance, ra = 0.99 ra + 0.01 batch.
+        stats = flatten_dict(jax.device_get(mut), sep="/")
+        after = export_flax_variables(tmod)
+        for k, v in stats.items():
+            np.testing.assert_allclose(after[k], v, rtol=0, atol=1e-6,
+                                       err_msg=f"{k} after call {i}")
+        # The gradient flows through the batch statistics.
+        dx, dscale, dbias = torch.autograd.grad(
+            got, (tx, tmod.bn.scale, tmod.bn.bias), torch.from_numpy(g))
+        np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(dscale.numpy(),
+                                   np.asarray(want_dp["bn"]["scale"]),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(dbias.numpy(),
+                                   np.asarray(want_dp["bn"]["bias"]),
+                                   rtol=1e-4, atol=1e-4)
+    # Inference afterwards reads the moved statistics.
+    x = rng.standard_normal((2, 3, 5, 5, 6)).astype(np.float32)
+    want = JL.TimeBatchNorm(use_running_average=True).apply(
+        variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_keras_layer_norm():
+    x = (3.0 * np.random.RandomState(11).standard_normal(
+        (2, 3, 4, 5, 6))).astype(np.float32)
+    got, want = run_both(JL.KerasLayerNorm(), L.KerasLayerNorm(6), x,
+                         seed=12)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_time_dense():
+    x = np.random.RandomState(13).standard_normal((2, 3, 10)).astype(
+        np.float32)
+    got, want = run_both(JL.TimeDense(4), L.TimeDense(10, 4), x, seed=14)
+    assert got.shape == (2, 3, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("in_size,target", [(9, 2), (31, 2), (7, 1),
+                                            (40, 5)])
+def test_shortcut_conv(in_size, target):
+    assert (L.shortcut_geometry(in_size, target)
+            == JL.shortcut_geometry(in_size, target))
+    x = np.random.RandomState(15).standard_normal(
+        (2, 2, in_size, in_size, 3)).astype(np.float32)
+    jmod = JL.ShortcutConv(target_size=target, features=5,
+                           update_sn_stats=False)
+    tmod = L.ShortcutConv(3, 5, in_size=in_size, target_size=target)
+    got, want = run_both(jmod, tmod, x, seed=16)
+    assert got.shape == want.shape == (2, 2, target, target, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_tiny_generator_training_forward_matches_flax():
+    kw = dict(image_size=16, sequence_length=3, generator_features=16)
+    flat = flat_random(j_init_generator(JModelConfig(**kw),
+                                        jax.random.key(0)), seed=17)
+    jgen, tgen = _generator_pair(kw, flat, "float32")
+    variables = to_tree(flat)
+    for i in range(2):
+        img, noise = _generator_inputs(kw, seed=18 + i)
+        want, mut = jgen.apply(variables, img, noise, train=True,
+                               mutable=["batch_stats", "spectral_stats"])
+        variables = {**variables, **mut}
+        got = tgen(torch.from_numpy(img), torch.from_numpy(noise),
+                   train=True)
+        assert got.requires_grad
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        after = export_flax_variables(tgen)
+        moved = flatten_dict(jax.device_get(mut), sep="/")
+        assert len(moved) == 5 * 2 + 4     # five BatchNorms, four SN convs
+        for k, v in moved.items():
+            np.testing.assert_allclose(after[k], v, rtol=0, atol=1e-5,
+                                       err_msg=f"{k} after call {i}")
+            assert not np.array_equal(after[k], flat[k]), k

@@ -19,14 +19,13 @@ path ``params/down1/kernel`` is the state-dict key ``down1.kernel``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
 from windtpu_torch.core.config import ModelConfig
 from windtpu_torch.core.device import resolve_device
 from windtpu_torch.models import layers as L
+from windtpu_torch.ops.convlstm import convlstm_seq
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,9 +39,12 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Generator(nn.Module):
-    """Inference generator: ``forward(image, noise)`` with image
+    """``forward(image, noise, train=False)`` with image
     (B, T, I, I, in_channels) and noise (B, T, I, I, noise_channels) ->
-    float32 (B, T, I, I, out_channels)."""
+    float32 (B, T, I, I, out_channels).  ``train=True`` normalizes with the
+    batch statistics and advances the BatchNorm running statistics and the
+    spectral-norm ``u`` vectors.  The ConvLSTM is built on the CUDA kernel
+    (:func:`windtpu_torch.ops.convlstm.convlstm_seq`)."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -58,7 +60,7 @@ class Generator(nn.Module):
         self.down2 = L.TimeConv(inter, f, (4, 4), strides=(2, 2), padding=1,
                                 dtype=dt)
         self.bn2 = L.TimeBatchNorm(f, dtype=dt)
-        self.convlstm = L.ConvLSTM(f, f, dtype=dt)
+        self.convlstm = L.ConvLSTM(f, f, recurrence=convlstm_seq, dtype=dt)
         self.mid = L.TimeConv(f, f // 2, (3, 3), padding="SAME", dtype=dt)
         self.bn3 = L.TimeBatchNorm(f // 2, dtype=dt)
         self.up1 = L.TimeConvTranspose(
@@ -81,50 +83,28 @@ class Generator(nn.Module):
                               use_spectral_norm=False, activation=None,
                               dtype=dt)
 
-    def forward(self, image: torch.Tensor,
-                noise: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, noise: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         x = torch.cat([image, noise], dim=-1).to(self.dtype)
-        x = self.bn1(self.down1(x))
+        x = self.bn1(self.down1(x, train), train)
         res_2 = x
-        x = self.bn2(self.down2(x))
+        x = self.bn2(self.down2(x, train), train)
         res_4 = x
         x = self.convlstm(x)
-        x = self.bn3(self.mid(x))
+        x = self.bn3(self.mid(x, train), train)
         x = torch.cat([x, res_4], dim=-1)
-        x = self.bn4(self.up1(x))
+        x = self.bn4(self.up1(x, train), train)
         x = torch.cat([x, res_2], dim=-1)
         x = L.bilinear_upsample_2x(x)
         x = self.up2(x) if self.wide_head else self.up2_conv(x)
-        x = self.bn5(x)
+        x = self.bn5(x, train)
         return self.out(x).float()
 
 
-@torch.no_grad()
 def init_generator(config: ModelConfig, seed: int = 0,
                    device=None) -> Generator:
-    """A generator with random weights drawn from ``seed``: Glorot-uniform
-    kernels, zero biases, unit BatchNorm, unit forget bias, Gaussian
-    spectral-norm ``u`` (the flax initializers' scales), on ``device``
+    """A generator with random weights drawn from ``seed``
+    (:func:`windtpu_torch.models.layers.init_variables`), on ``device``
     (``None`` means the card; see ``core.device.resolve_device``)."""
-    model = Generator(config)
-    gen = torch.Generator().manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("kernel", "recurrent_kernel"):
-            fan_in = math.prod(p.shape[:-1])
-            fan_out = math.prod(p.shape[:-2]) * p.shape[-1]
-            lim = math.sqrt(6.0 / (fan_in + fan_out))
-            p.copy_(torch.rand(p.shape, generator=gen) * 2 * lim - lim)
-        elif leaf in ("scale", "forget_bias"):
-            p.fill_(1.0)
-        else:
-            p.zero_()
-    for name, buf in model.named_buffers():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "u":
-            buf.copy_(torch.randn(buf.shape, generator=gen))
-        elif leaf == "var":
-            buf.fill_(1.0)
-        else:
-            buf.zero_()
-    return model.to(resolve_device(device)).eval()
+    device = resolve_device(device)
+    return L.init_variables(Generator(config), seed).to(device).eval()

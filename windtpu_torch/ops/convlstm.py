@@ -8,32 +8,24 @@ tensor it launches ``csrc/convlstm.cu`` once per time step; on a CPU tensor
 it runs :func:`convlstm_seq_plain`, the same arithmetic in plain PyTorch
 with the same rounding points (f32 accumulation and gate math, h and c
 stored in the I/O dtype between steps).  There is no fallback from the
-kernel to the plain version.
+kernel to the plain version.  The gradient comes from
+:class:`ConvLSTMSeqFunction`, whose backward replays the recurrence.
 
-The kernel library is compiled with ``nvcc`` at first use into
-``build/windtpu_torch/`` under the checkout, keyed by a hash of the source
-and flags, and bound with ``ctypes``; nothing is compiled or imported when
-this module is imported.
+The kernel library is built and bound at first use by
+:mod:`windtpu_torch.ops._build`; nothing is compiled or loaded when this
+module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "convlstm.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "windtpu_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from windtpu_torch.ops._build import bind
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,62 +84,64 @@ def convlstm_seq_plain(zx: torch.Tensor, rk: torch.Tensor, *,
     return torch.stack(ys, dim=1)
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    path: Path       # the shared library
-    log: str         # nvcc's output (-Xptxas -v: registers, smem, spills)
-    seconds: float   # compile time; 0.0 when the cached library was used
-    built: bool      # False when the library was already there
+_STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-
-
-def build_library() -> BuildInfo:
-    """Compile ``csrc/convlstm.cu`` into a shared library unless a library
-    for this exact source and these flags is already there."""
-    source = _SOURCE.read_bytes()
-    key = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f"convlstm_{key[:16]}.so"
-    log_path = lib.with_suffix(".log")
-    if lib.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return BuildInfo(lib, log, 0.0, False)
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return BuildInfo(lib, log, seconds, True)
+def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
+                     hard_sig: bool) -> torch.Tensor:
+    """T launches of the step kernel on ``zx``'s device and current stream."""
+    step = bind("convlstm", "windtpu_convlstm_step", _STEP_ARGTYPES)
+    b, t, h, w, f4 = zx.shape
+    f = f4 // 4
+    rk = rk.to(zx.dtype).contiguous()
+    y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
+    c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
+    with torch.cuda.device(zx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(t):
+            err = step(_DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
+                       y.data_ptr(), c.data_ptr(), b, t, h, w, f, s,
+                       int(hard_sig), stream)
+            if err:
+                raise RuntimeError(
+                    f"convlstm kernel launch failed at step {s}: CUDA error "
+                    f"{err}")
+            convlstm_seq.launches += 1
+    return y
 
 
-_LIB = None
+class ConvLSTMSeqFunction(torch.autograd.Function):
+    """The recurrence with the kernel as its forward.  The backward does
+    what the TPU kernel's custom VJP does (``_make_fused`` in
+    ``windtpu/ops/pallas_convlstm.py``): it replays the op-by-op recurrence
+    ``models.layers.convlstm_scan`` on the saved inputs and takes that
+    replay's gradient.  It can be differentiated once; the twice
+    differentiated path (the critic's gradient penalty) is built on
+    ``convlstm_scan`` itself."""
 
+    @staticmethod
+    def forward(ctx, zx, rk, hard_sig):
+        ctx.save_for_backward(zx, rk)
+        ctx.hard_sig = hard_sig
+        if zx.device.type == "cpu":
+            return convlstm_seq_plain(zx, rk, hard_sig=hard_sig)
+        return _launch_sequence(zx, rk, hard_sig)
 
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library().path))
-        fn = lib.windtpu_convlstm_step
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        # Lazy import: models.layers imports this module.
+        from windtpu_torch.models.layers import convlstm_scan
+
+        zx, rk = (a.detach().requires_grad_() for a in ctx.saved_tensors)
+        with torch.enable_grad():
+            y = convlstm_scan(zx, rk, hard_sig=ctx.hard_sig)
+        wanted = [a for a, need in zip((zx, rk), ctx.needs_input_grad)
+                  if need]
+        grads = iter(torch.autograd.grad(y, wanted, grad.to(y.dtype)))
+        return tuple(next(grads) if need else None
+                     for need in ctx.needs_input_grad[:2]) + (None,)
 
 
 def convlstm_seq(zx: torch.Tensor, rk: torch.Tensor, *,
@@ -156,31 +150,16 @@ def convlstm_seq(zx: torch.Tensor, rk: torch.Tensor, *,
 
     ``zx`` carries the input conv with the gate bias and the unit forget
     bias folded in.  CUDA tensors launch the kernel (T launches, counted in
-    ``convlstm_seq.launches``); CPU tensors take the plain version."""
-    f = _check(zx, rk)
+    ``convlstm_seq.launches``) through :class:`ConvLSTMSeqFunction`, which
+    gives the gradients for ``zx`` and ``rk``; CPU tensors take the plain
+    version under ordinary autograd."""
+    _check(zx, rk)
     if zx.device.type == "cpu":
         return convlstm_seq_plain(zx, rk, hard_sig=hard_sig)
     if zx.device.type != "cuda":
         raise ValueError(f"convlstm runs on CUDA or CPU tensors; got "
                          f"{zx.device}")
-    lib = _library()
-    b, t, h, w, _ = zx.shape
-    rk = rk.to(zx.dtype).contiguous()
-    y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
-    c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
-    with torch.cuda.device(zx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for s in range(t):
-            err = lib.windtpu_convlstm_step(
-                _DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
-                y.data_ptr(), c.data_ptr(), b, t, h, w, f, s, int(hard_sig),
-                stream)
-            if err:
-                raise RuntimeError(
-                    f"convlstm kernel launch failed at step {s}: CUDA error "
-                    f"{err}")
-            convlstm_seq.launches += 1
-    return y
+    return ConvLSTMSeqFunction.apply(zx, rk, hard_sig)
 
 
 convlstm_seq.launches = 0

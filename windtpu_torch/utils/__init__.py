@@ -1,0 +1,1 @@
+from windtpu_torch.utils.logging import MetricsLogger  # noqa: F401
