@@ -14,9 +14,11 @@ Phases, each of which ends the script with a nonzero exit on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes and at a ragged shape, then time the kernel,
    the plain version and the nearest PyTorch call with CUDA events, beside
-   the kernel's bound.  K1 (ConvLSTM): forward in bf16 and f32, and the
-   gradients through its autograd Function.  K2 (spatial KS): also on
-   identical fields and with NaNs;
+   the kernel's bound.  K1 (ConvLSTM): forward in bf16 (tensor cores, the
+   tile chosen per shape) and f32 (CUDA cores), the bf16 times at the
+   downscale and training shapes beside cuDNN's convs, and the gradients
+   through its autograd Function.  K2 (spatial KS): also on identical
+   fields, with NaNs and with values on the thresholds;
 4. reference: the flagship network in f32 with the bundled weights on a
    small domain, on the card (kernels) against the CPU (plain versions);
 5. downscale path: ``windtpu_torch.api.downscale`` of the flagship inference
@@ -64,6 +66,7 @@ MAIN_SHAPE = (16, 24, 24, 24, 128)
 TRAIN_SHAPE = (2, 24, 24, 24, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
+NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
 TOL = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
 # K1's bf16 gradient with hard_sigmoid: relative L2 and the share of entries
 # beyond TOL x max |grad| (see convlstm_gradient_phase).
@@ -165,13 +168,19 @@ def convlstm_kernel_phase() -> dict:
     import torch
     import torch.nn.functional as F
 
-    from windtpu_torch.ops.convlstm import convlstm_seq, convlstm_seq_plain
+    from windtpu_torch.ops.convlstm import (
+        TILES,
+        choose_tile,
+        convlstm_seq,
+        convlstm_seq_plain,
+    )
 
     cases = [(MAIN_SHAPE, torch.bfloat16, True),
              (MAIN_SHAPE, torch.float32, True),
              (TRAIN_SHAPE, torch.bfloat16, True),
              (RAGGED_SHAPE, torch.bfloat16, True),
-             (RAGGED_SHAPE, torch.float32, False)]
+             (RAGGED_SHAPE, torch.float32, False),
+             (NARROW_SHAPE, torch.bfloat16, True)]
     main_err = None
     for i, (shape, dtype, hard) in enumerate(cases):
         zx, rk = convlstm_inputs(shape, dtype, seed=i)
@@ -189,32 +198,61 @@ def convlstm_kernel_phase() -> dict:
         if i == 0:
             main_err = err
 
-    zx, rk = convlstm_inputs(MAIN_SHAPE, torch.bfloat16, seed=0)
-    b, t, h, w, f = MAIN_SHAPE
-    ms = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
-    plain_ms = cuda_ms(lambda: convlstm_seq_plain(zx, rk), iters=5, warmup=1)
-    # Library yardstick, conv part only: the T-1 recurrent 3x3 convs as
-    # cuDNN calls on channels-last bf16 (no single PyTorch call computes
-    # the whole recurrence).
-    hx = torch.randn(b, f, h, w, device="cuda", dtype=torch.bfloat16
-                     ).contiguous(memory_format=torch.channels_last)
-    wk = rk.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE, RAGGED_SHAPE, NARROW_SHAPE):
+        b, t, h, w, f = shape
+        bm, bj = TILES[choose_tile(b * h * w, f, sms)]
+        blocks = -(-b * h * w // bm) * -(-f // bj)
+        print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj} "
+              f"({blocks} blocks per step on {sms} SMs)")
 
-    def library():
-        for _ in range(t - 1):
-            F.conv2d(hx, wk, padding=1)
+    def library_convs(shape, rk):
+        # Library yardstick, conv part only: the T-1 recurrent 3x3 convs as
+        # cuDNN calls on channels-last bf16 (no single PyTorch call
+        # computes the whole recurrence).
+        b, t, h, w, f = shape
+        hx = torch.randn(b, f, h, w, device="cuda", dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last)
+        wk = rk.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
 
-    library_ms = cuda_ms(library, iters=20)
-    bound_ms, bound_by, flops, nbytes = convlstm_bound(MAIN_SHAPE, 2)
-    print(f"convlstm_seq {MAIN_SHAPE} bf16, one sequence ({t} launches): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (cuDNN "
-          f"conv part only) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"kernel at {flops / ms / 1e9:.1f} TFLOP/s")
-    stats = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": library_ms}
+        def library():
+            for _ in range(t - 1):
+                F.conv2d(hx, wk, padding=1)
+        return library
+
+    # One card, one call: the bf16 kernel, the f32 CUDA-core kernel (main
+    # shape only), the plain version (main shape only) and cuDNN, in turns.
+    stats = {}
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+        zx, rk = convlstm_inputs(shape, torch.bfloat16, seed=0)
+        library = library_convs(shape, rk)
+        bound_ms, bound_by, flops, nbytes = convlstm_bound(shape, 2)
+        ms = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
+        library_ms = cuda_ms(library, iters=20)
+        ms_again = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
+        line = (f"convlstm_seq {shape} bf16, one sequence ({shape[1]} "
+                f"launches): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                f"TFLOP/s; again {ms_again:.4f} ms), library (cuDNN conv "
+                f"part only) {library_ms:.4f} ms "
+                f"({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB)")
+        if shape == MAIN_SHAPE:
+            zx32 = zx.float()
+            f32_ms = cuda_ms(lambda: convlstm_seq(zx32, rk), iters=5)
+            plain_ms = cuda_ms(lambda: convlstm_seq_plain(zx, rk), iters=5,
+                               warmup=1)
+            line += (f"; f32 CUDA-core kernel {f32_ms:.4f} ms "
+                     f"({flops / f32_ms / 1e9:.1f} TFLOP/s); plain "
+                     f"{plain_ms:.4f} ms")
+            stats = {"max_abs_err": main_err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "f32_ms": f32_ms}
+        else:
+            stats.update(train_library_ms=library_ms)
+        print(line)
     stats.update(convlstm_gradient_phase())
     return stats
 
@@ -318,19 +356,30 @@ def ks_kernel_phase() -> dict:
         ks_thresholds,
         spatially_convolved_ks_stat,
     )
-    from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.ops.ks import launch_spatial_ks, spatial_ks
 
     main_err = None
-    cases = [("path", KS_SHAPE, KS_ARGS, False),
-             ("ragged", KS_RAGGED, KS_RAGGED_ARGS, False),
-             ("path with NaNs", KS_SHAPE, KS_ARGS, True),
+    cases = [("path", KS_SHAPE, KS_ARGS, None),
+             ("ragged", KS_RAGGED, KS_RAGGED_ARGS, None),
+             ("path with NaNs", KS_SHAPE, KS_ARGS, "nans"),
+             ("path with values on the thresholds", KS_SHAPE, KS_ARGS,
+              "ties"),
              ("one threshold, patch = H", (1, 2, 12, 20, 1),
-              dict(patch_size=12, num_points=1), False)]
-    for i, (name, shape, kw, nans) in enumerate(cases):
+              dict(patch_size=12, num_points=1), None),
+             ("patch 16, two thresholds per word", (1, 2, 40, 51, 1),
+              dict(patch_size=16, num_points=30), "nans")]
+    for i, (name, shape, kw, edit) in enumerate(cases):
         real, fake = ks_inputs(shape, seed=60 + i)
-        if nans:
+        if edit == "nans":
             real[0, 0, 3:5, 7, 0] = float("nan")
-            fake[1, 2, 50, 10:40, 1] = float("nan")
+            fake[-1, -1, -1, 10:40, -1] = float("nan")
+        elif edit == "ties":
+            # Every other value moved onto its nearest threshold.
+            torch.manual_seed(60 + i)
+            grid = ks_thresholds(kw["num_points"], -30.0, 30.0, "cuda")
+            near = grid[torch.bucketize(real, grid).clamp(max=len(grid) - 1)]
+            real = torch.where(torch.rand_like(real) < 0.5, near, real)
+            fake = torch.where(torch.rand_like(fake) < 0.5, near, fake)
         got = spatial_ks(real, fake, **kw)
         want = spatially_convolved_ks_stat(real, fake, **kw)
         same = spatial_ks(real, real.clone(), **kw)
@@ -348,29 +397,37 @@ def ks_kernel_phase() -> dict:
             main_err = err
 
     real, fake = ks_inputs(KS_SHAPE, seed=60)
-    ms = cuda_ms(lambda: spatial_ks(real, fake, **KS_ARGS), iters=20)
+    # The kernel alone, on the fields as the wrapper prepares them; then
+    # the whole wrapper (field layout, thresholds, kernel, mean).
+    fr, ff = ks_fields(real).contiguous(), ks_fields(fake).contiguous()
+    points = ks_thresholds(KS_ARGS["num_points"], -30.0, 30.0, "cuda")
+    patch = KS_ARGS["patch_size"]
+    out = torch.empty((fr.shape[0], fr.shape[1] - patch + 1,
+                       fr.shape[2] - patch + 1), device="cuda")
+    ms = cuda_ms(lambda: launch_spatial_ks(fr, ff, points, out, patch),
+                 iters=50)
+    wrapper_ms = cuda_ms(lambda: spatial_ks(real, fake, **KS_ARGS),
+                         iters=50)
     plain_ms = cuda_ms(
         lambda: spatially_convolved_ks_stat(real, fake, **KS_ARGS),
         iters=3, warmup=1)
     # No single PyTorch call computes this function.  The nearest
     # yardstick: F.avg_pool2d of the two indicator images, in a loop over
     # the thresholds.
-    fr, ff = ks_fields(real)[:, None], ks_fields(fake)[:, None]
-    patch = KS_ARGS["patch_size"]
-    points = ks_thresholds(KS_ARGS["num_points"], -30.0, 30.0, "cuda")
-
     def yardstick():
         best = torch.zeros((), device="cuda")
         for p in points:
-            diff = (F.avg_pool2d((fr <= p).float(), patch, stride=1)
-                    - F.avg_pool2d((ff <= p).float(), patch, stride=1))
+            diff = (F.avg_pool2d((fr[:, None] <= p).float(), patch, stride=1)
+                    - F.avg_pool2d((ff[:, None] <= p).float(), patch,
+                                   stride=1))
             best = torch.maximum(best, diff.abs())
         return best.mean(dim=0)
 
     yardstick_ms = cuda_ms(yardstick, iters=3, warmup=1)
     bound_ms, bound_by, ops, nbytes = ks_bound(KS_SHAPE, **KS_ARGS)
     print(f"spatial_ks {KS_SHAPE} {KS_ARGS} (96 field pairs, one launch): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, yardstick "
+          f"kernel {ms:.4f} ms (the wrapper with its field layout and mean "
+          f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, yardstick "
           f"(avg_pool2d per threshold, not one call) {yardstick_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} G "
           f"operations at {PEAK_F32_OPS / 1e12:.0f}e12/s, "
@@ -378,7 +435,7 @@ def ks_kernel_phase() -> dict:
           f"T operations/s")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "yardstick_ms": yardstick_ms}
+            "wrapper_ms": wrapper_ms, "yardstick_ms": yardstick_ms}
 
 
 def era5_and_dem(nlat: int, nlon: int, nt: int, seed: int,

@@ -20,9 +20,13 @@ from windtpu.models.layers import _convlstm_scan, hard_sigmoid
 from windtpu.ops.pallas_convlstm import convlstm_seq_fused
 from windtpu_torch.models.layers import convlstm_scan
 from windtpu_torch.ops.convlstm import (
+    K_CHUNK,
+    TILES,
     ConvLSTMSeqFunction,
+    choose_tile,
     convlstm_seq,
     convlstm_seq_plain,
+    pack_recurrent_kernel,
 )
 
 torch.set_num_threads(2)
@@ -107,7 +111,9 @@ def test_kernel_matches_plain_on_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [((2, 4, 24, 24, 128), torch.bfloat16, True, 2.0 ** -5),
              ((2, 4, 24, 24, 128), torch.float32, True, 1e-4),
-             ((3, 5, 7, 7, 40), torch.float32, False, 1e-4)]
+             ((3, 5, 7, 7, 40), torch.float32, False, 1e-4),
+             ((3, 5, 7, 7, 40), torch.bfloat16, True, 2.0 ** -5),
+             ((2, 3, 5, 9, 12), torch.bfloat16, True, 2.0 ** -5)]
     for i, ((b, t, h, w, f), dtype, hard, tol) in enumerate(cases):
         zx, rk = _inputs(10 + i, b, t, h, w, f)
         zx = torch.from_numpy(zx).to("cuda", dtype)
@@ -119,6 +125,74 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (b, t, h, w, f, dtype, err)
+
+
+def _unpack(packed, f):
+    """Inverse of pack_recurrent_kernel."""
+    nb, k9, n4 = packed.shape
+    bj, fp = n4 // 4, k9 // 9
+    w = packed.reshape(nb, 9, fp, 4, bj).permute(1, 2, 3, 0, 4)
+    return w.reshape(9, fp, 4, nb * bj)[:, :f, :, :f].reshape(3, 3, f, 4 * f)
+
+
+def _packed_step(h, packed, f):
+    """One step's recurrent product as the bf16 route computes it: the
+    im2col of h (tap-major, channels zero-padded to Fp) times each block's
+    slab, whose columns are [gate][channel of the block]."""
+    b, hh, ww, _ = h.shape
+    nb, k9, n4 = packed.shape
+    bj, fp = n4 // 4, k9 // 9
+    hp = torch.nn.functional.pad(h, (0, fp - f, 1, 1, 1, 1))
+    cols = torch.stack([hp[:, dy:dy + hh, dx:dx + ww]
+                        for dy in range(3) for dx in range(3)], dim=3)
+    z = torch.einsum("mk,bkn->mbn", cols.reshape(b * hh * ww, 9 * fp),
+                     packed)
+    z = z.reshape(-1, nb, 4, bj).permute(0, 2, 1, 3).reshape(-1, 4, nb * bj)
+    return z[:, :, :f].reshape(b, hh, ww, 4 * f)
+
+
+@pytest.mark.parametrize("f", [8, 12, 40])
+@pytest.mark.parametrize("bj", [8, 16, 32])
+def test_packed_slab_gemm_is_the_conv_step(bj, f):
+    rng = np.random.RandomState(11)
+    rk = torch.from_numpy((0.1 * rng.randn(3, 3, f, 4 * f)).astype(
+        np.float32))
+    h = torch.from_numpy(rng.randn(2, 5, 6, f).astype(np.float32))
+    packed = pack_recurrent_kernel(rk, bj)
+    fp = -(-f // K_CHUNK) * K_CHUNK
+    assert packed.shape == (-(-f // bj), 9 * fp, 4 * bj)
+    assert packed.is_contiguous() and packed.dtype == rk.dtype
+    assert torch.equal(_unpack(packed, f), rk)
+    # The step of convlstm_seq_plain: F.conv2d with the (4F, F, 3, 3) view.
+    want = torch.nn.functional.conv2d(
+        h.permute(0, 3, 1, 2), rk.permute(3, 2, 0, 1), padding=1)
+    got = _packed_step(h, packed, f)
+    torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=0,
+                               atol=1e-5)
+
+
+def test_packed_slab_pads_with_zeros_and_keeps_bf16():
+    f, bj = 12, 16
+    rk = torch.ones(3, 3, f, 4 * f, dtype=torch.bfloat16)
+    packed = pack_recurrent_kernel(rk, bj).reshape(1, 9, K_CHUNK, 4, bj)
+    assert packed.dtype == torch.bfloat16
+    assert packed[..., :f, :, :f].eq(1).all()
+    assert packed[..., f:, :, :].eq(0).all()      # channels k >= F
+    assert packed[..., :, :, f:].eq(0).all()      # channels j >= F
+    with pytest.raises(ValueError):
+        pack_recurrent_kernel(rk, 12)
+
+
+@pytest.mark.parametrize("shape,tile,blocks", [
+    ((16, 24, 24, 128), 0, 256),   # downscale: 64 x 4 large tiles
+    ((2, 24, 24, 128), 1, 144),    # training: 18 x 8 small tiles, not 32
+    ((3, 7, 7, 40), 1, 9),
+])
+def test_tile_follows_the_shape(shape, tile, blocks):
+    b, h, w, f = shape
+    assert choose_tile(b * h * w, f) == tile
+    bm, bj = TILES[tile]
+    assert -(-b * h * w // bm) * -(-f // bj) == blocks
 
 
 def _jax_vjps(zx, rk, g, hard_sig):

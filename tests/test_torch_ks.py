@@ -19,7 +19,12 @@ from windtpu.metrics.metrics import (
 )
 from windtpu.ops.pallas_ks import spatial_ks_pallas
 from windtpu_torch.metrics import oracles as O
-from windtpu_torch.metrics.metrics import spatially_convolved_ks_stat
+from windtpu_torch.metrics.metrics import (
+    _box_mean,
+    ks_fields,
+    ks_thresholds,
+    spatially_convolved_ks_stat,
+)
 from windtpu_torch.ops.ks import spatial_ks
 
 torch.set_num_threads(2)
@@ -125,6 +130,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         spatial_ks(real, fake, **kw)
 
 
+def _threshold_index(x, points):
+    """The kernel's per-pixel index: the first k with x <= points[k], and
+    len(points) for a NaN."""
+    k = torch.searchsorted(points, x.contiguous(), side="left")
+    return torch.where(torch.isnan(x), len(points), k)
+
+
+def threshold_index_form(real, fake, patch_size, num_points, lo=-30.0,
+                         hi=30.0):
+    """The plain version with each indicator [x <= p_k] replaced by the
+    kernel's [k >= k(x)]."""
+    fr, ff = ks_fields(real), ks_fields(fake)
+    points = ks_thresholds(num_points, lo, hi, fr.device)
+    kr, kf = _threshold_index(fr, points), _threshold_index(ff, points)
+    oh, ow = fr.shape[-2] - patch_size + 1, fr.shape[-1] - patch_size + 1
+    ks = torch.zeros((fr.shape[0], oh, ow))
+    for k in range(num_points):
+        cdf_r = _box_mean((k >= kr).float(), patch_size)
+        cdf_f = _box_mean((k >= kf).float(), patch_size)
+        ks = torch.maximum(ks, torch.abs(cdf_r - cdf_f))
+    return torch.mean(ks, dim=0)
+
+
+def integer_window_form(real, fake, patch_size, num_points, lo=-30.0,
+                        hi=30.0):
+    """The kernel's arithmetic: integer window sums of d = [k >= k(real)] -
+    [k >= k(fake)], the max of |sum| over k, one division by patch^2, then
+    the mean over the fields."""
+    fr, ff = ks_fields(real), ks_fields(fake)
+    points = ks_thresholds(num_points, lo, hi, fr.device)
+    kr, kf = _threshold_index(fr, points), _threshold_index(ff, points)
+    best = None
+    for k in range(num_points):
+        d = (k >= kr).long() - (k >= kf).long()
+        sums = d.unfold(1, patch_size, 1).unfold(2, patch_size, 1).sum(
+            dim=(-1, -2)).abs()
+        best = sums if best is None else torch.maximum(best, sums)
+    return torch.mean(best.float() / float(patch_size * patch_size), dim=0)
+
+
+def _index_form_fields(kind, seed):
+    shape, kw = (2, 2, 17, 23, 2), dict(patch_size=4, num_points=30,
+                                          lo=-6.0, hi=6.0)
+    real, fake = (torch.from_numpy(a) for a in pair(shape, 3.0, seed))
+    points = ks_thresholds(kw["num_points"], kw["lo"], kw["hi"], "cpu")
+    if kind == "nans":
+        real[0, 1, 2:5, 7, 0] = float("nan")
+        fake[1, 0, 10, 3:20, 1] = float("nan")
+        fake[0, 0, 0, 0, 0] = float("nan")
+    elif kind == "ties":
+        # Values exactly on the thresholds, and one ulp to either side.
+        rng = np.random.default_rng(seed)
+        pick = torch.from_numpy(rng.integers(0, len(points), shape))
+        on = points[pick]
+        side = torch.from_numpy(rng.integers(0, 3, shape))
+        on = torch.where(side == 1, torch.nextafter(on, on + 1), on)
+        on = torch.where(side == 2, torch.nextafter(on, on - 1), on)
+        mask = torch.from_numpy(rng.random(shape) < 0.5)
+        real = torch.where(mask, on, real)
+        fake = torch.where(~mask, on.flip(0), fake)
+    return real, fake, kw
+
+
+@pytest.mark.parametrize("kind", ["random", "nans", "ties"])
+def test_threshold_index_form_equals_plain_exactly(kind):
+    real, fake, kw = _index_form_fields(kind, seed=40)
+    want = spatially_convolved_ks_stat(real, fake, **kw)
+    assert torch.equal(threshold_index_form(real, fake, **kw), want)
+
+
+@pytest.mark.parametrize("kind", ["random", "nans", "ties"])
+def test_integer_window_form_matches_plain(kind):
+    real, fake, kw = _index_form_fields(kind, seed=41)
+    want = spatially_convolved_ks_stat(real, fake, **kw)
+    got = integer_window_form(real, fake, **kw)
+    # Exact counts on both sides; the division is placed differently.
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    same = integer_window_form(real, real.clone(), **kw)
+    assert torch.equal(same, torch.zeros_like(same))
+
+
+@pytest.mark.parametrize("num_points,lo,hi", [
+    (100, -30.0, 30.0), (25, -30.0, 30.0), (1, 0.0, 1.0), (15, -5.0, 5.0),
+    (1000, -1e-3, 1e-3), (7, 2.0, 2.0)])
+def test_thresholds_ascend(num_points, lo, hi):
+    # The kernel's binary search for k(x) needs non-decreasing points.
+    points = ks_thresholds(num_points, lo, hi, "cpu")
+    assert bool((points[1:] >= points[:-1]).all())
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -132,10 +227,17 @@ def test_kernel_matches_plain_on_card():
     cases = [((2, 3, 96, 96, 2), dict(patch_size=9, num_points=100)),
              ((1, 3, 37, 53, 2), dict(patch_size=5, num_points=25)),
              ((1, 1, 12, 9, 1), dict(patch_size=9, num_points=1)),
-             ((1, 2, 16, 16, 1), dict(patch_size=1, num_points=7))]
+             ((1, 2, 16, 16, 1), dict(patch_size=1, num_points=7)),
+             ((1, 2, 40, 51, 1), dict(patch_size=16, num_points=30))]
+    fields = [tuple(torch.from_numpy(a).cuda()
+                    for a in pair(shape, 8.0, seed=30 + i))
+              for i, (shape, _) in enumerate(cases)]
+    for kind in ("nans", "ties"):
+        real, fake, kw = _index_form_fields(kind, seed=34)
+        cases.append((real.shape, kw))
+        fields.append((real.cuda(), fake.cuda()))
     for i, (shape, kw) in enumerate(cases):
-        real, fake = (torch.from_numpy(a).cuda()
-                      for a in pair(shape, 8.0, seed=30 + i))
+        real, fake = fields[i]
         real[0, 0, 1, 1, 0] = float("nan")
         before = spatial_ks.launches
         got = spatial_ks(real, fake, **kw)

@@ -7,9 +7,12 @@ activations ``zx`` (B, T, H, W, 4F) and a recurrent kernel ``rk``
 tensor it launches ``csrc/convlstm.cu`` once per time step; on a CPU tensor
 it runs :func:`convlstm_seq_plain`, the same arithmetic in plain PyTorch
 with the same rounding points (f32 accumulation and gate math, h and c
-stored in the I/O dtype between steps).  There is no fallback from the
-kernel to the plain version.  The gradient comes from
-:class:`ConvLSTMSeqFunction`, whose backward replays the recurrence.
+stored in the I/O dtype between steps).  The kernel has two routes by
+dtype: bf16 on the tensor cores, with ``rk`` first packed by
+:func:`pack_recurrent_kernel` for the tile that :func:`choose_tile` picks,
+and f32 on the CUDA cores.  There is no fallback from the kernel to the
+plain version.  The gradient comes from :class:`ConvLSTMSeqFunction`, whose
+backward replays the recurrence.
 
 The kernel library is built and bound at first use by
 :mod:`windtpu_torch.ops._build`; nothing is compiled or loaded when this
@@ -27,6 +30,37 @@ from torch.autograd.function import once_differentiable
 from windtpu_torch.ops._build import bind
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bf16 route's stage depth and tiles, as csrc/convlstm.cu defines them
+# (KC, LargeTile, SmallTile): code -> (pixels BM, channels BJ) per block.
+K_CHUNK = 32
+TILES = {0: (144, 32), 1: (64, 16)}
+
+
+def choose_tile(m: int, f: int, sms: int = 132) -> int:
+    """The bf16 route's tile for M = B*H*W pixels and F channels: the large
+    tile where it gives at least one block per SM, else the small one
+    (4x the blocks)."""
+    bm, bj = TILES[0]
+    return 0 if -(-m // bm) * -(-f // bj) >= sms else 1
+
+
+def pack_recurrent_kernel(rk: torch.Tensor, bj: int) -> torch.Tensor:
+    """(3, 3, F, 4F) -> the bf16 route's slab (ceil(F/bj), 9*Fp, 4*bj),
+    Fp = F rounded up to ``K_CHUNK``: block ``jb`` of ``bj`` channels reads
+    the contiguous (9*Fp, 4*bj) operand whose row ``tap*Fp + k`` and column
+    ``g*bj + j`` hold ``rk[tap // 3, tap % 3, k, g*F + jb*bj + j]``, zero
+    where ``k`` or ``jb*bj + j`` is not below F.  Plain torch ops, so it
+    runs where ``rk`` lies and keeps its dtype."""
+    if bj % 8:
+        raise ValueError(f"bj must be a multiple of 8; got {bj}")
+    f = rk.shape[2]
+    fp = -(-f // K_CHUNK) * K_CHUNK
+    nb = -(-f // bj)
+    w = rk.reshape(9, f, 4, f)                       # tap, k, gate, j
+    w = F.pad(w, (0, nb * bj - f, 0, 0, 0, fp - f))  # j, then k
+    w = w.reshape(9, fp, 4, nb, bj).permute(3, 0, 1, 2, 4)
+    return w.reshape(nb, 9 * fp, 4 * bj).contiguous()
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +119,7 @@ def convlstm_seq_plain(zx: torch.Tensor, rk: torch.Tensor, *,
 
 
 _STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
@@ -95,6 +129,11 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
     rk = rk.to(zx.dtype).contiguous()
+    tile = 0
+    if zx.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(zx.device).multi_processor_count
+        tile = choose_tile(b * h * w, f, sms)
+        rk = pack_recurrent_kernel(rk, TILES[tile][1])
     y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
     c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
     with torch.cuda.device(zx.device):
@@ -102,7 +141,7 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
         for s in range(t):
             err = step(_DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
                        y.data_ptr(), c.data_ptr(), b, t, h, w, f, s,
-                       int(hard_sig), stream)
+                       int(hard_sig), tile, stream)
             if err:
                 raise RuntimeError(
                     f"convlstm kernel launch failed at step {s}: CUDA error "

@@ -10,38 +10,86 @@
 //
 // with h_{-1} = c_{-1} = 0 and the gate order (i, f, c, o) along the 4F
 // axis.  h_t and c_t are stored in the I/O type between steps, which
-// reproduces the TPU kernel's rounding points.
+// reproduces the TPU kernel's rounding points.  Step 0 does no product.
 //
-// Layouts (all contiguous): zx (B, T, H, W, 4F); rk (3, 3, F, 4F) in the I/O
-// type; y (B, T, H, W, F), which also holds h_{t-1} for step t; c (B, H, W,
-// F), scratch owned by the caller.  The caller loops over t.
+// Layouts (all contiguous): zx (B, T, H, W, 4F) in the I/O type; y (B, T, H,
+// W, F), which also holds h_{t-1} for step t; c (B, H, W, F), scratch owned
+// by the caller.  The caller loops over t.  The recurrent kernel comes in two
+// forms, one per route:
+//   - f32: rk (3, 3, F, 4F) as it is;
+//   - bf16: the packed slab of ops/convlstm.py:pack_recurrent_kernel,
+//     (ceil(F/BJ), 9*Fp, 4*BJ) with Fp = F rounded up to KC = 32: block jb
+//     of BJ channels reads one contiguous (9*Fp x 4*BJ) operand, rows
+//     tap-major then channel (zero rows for channels >= F), columns [g][j]
+//     (zero columns for channels >= F).
 //
 // What bounds it.  At the generator's shape (B=16, T=24, 24x24, F=128, bf16)
-// one sequence is 2*B*(T-1)*H*W*9F*4F = 250.0 GFLOP (h_{-1} = 0, so step 0
-// has no product) against 284 MB of compulsory traffic (zx read once, y
-// written once, rk once): 0.253 ms at 989 TFLOP/s bf16 versus 0.085 ms at
-// 3.35 TB/s.  It is compute-bound, with a bound of 0.253 ms per sequence.
+// one step is a GEMM of M = B*H*W = 9216 pixels, N = 4F = 512 gate columns
+// and K = 9F = 1152: 10.9 GFLOP, and a sequence (T-1 = 23 products) 250.0
+// GFLOP against 284 MB of compulsory traffic (zx read once, y written once,
+// rk once): 0.253 ms at 989 TFLOP/s bf16 versus 0.085 ms at 3.35 TB/s.  It
+// is bound by operations, at 0.253 ms per sequence.
 //
-// What the design does about it.  The TPU kernel keeps (h, c) in VMEM across
-// a sequential grid; on the card blocks run in no order and h + c at the
-// generator's shape is far more than one SM's shared memory, so each step is
-// its own launch and the state stays in device memory (it is L2-resident:
-// h_{t-1} is 2.4 MB).  Each step is an implicit GEMM with M = B*H*W pixels,
-// depth K = 9F (tap-major) and N = 4F gate columns.  A block owns a tile of
-// BM pixels x BJ channels j and computes the four gate columns {j, F+j, 2F+j,
-// 3F+j} of those channels, so the gate math runs in the epilogue without a
-// second pass.  SAME padding is done by masking out-of-image taps to zero.
-// The product runs on the CUDA cores in f32 (one code path for the bf16
-// serving type and the f32 parity type), tiled through shared memory with a
-// 4x(4x4) register tile per thread.  That is far below the tensor-core bound
-// above; wgmma, TMA and a persistent design are the next steps.
+// What the design does about it (bf16, the serving and training type).
+// The product runs on the tensor cores: mma.sync.m16n8k16 with bf16
+// operands and f32 accumulators, fed by ldmatrix from shared memory.  A and
+// B are staged as bf16 (no widening) in a ring of STAGES = 3 buffers filled
+// by 16-byte cp.async copies, so the loads of stages k+1 and k+2 are in
+// flight while stage k is multiplied.  One stage is one tap and KC = 32
+// channels: the A tile is the im2col gather of h_{t-1} (y[:, t-1], 2.4 MB,
+// L2-resident) at that tap, with cp.async's zero-fill for taps outside the
+// image (SAME padding), for channels >= F and for pixels >= M; the B tile is
+// KC contiguous rows of the packed slab.  Where F is not a multiple of 8 a
+// 16-byte copy would cross a pixel, so the A tile is gathered element by
+// element instead (same kernel, a template flag); B is always 16-byte
+// aligned.  Because BJ is a multiple of 8, column g*BJ + j of an m16n8
+// accumulator sits in the same thread as column j, so each thread holds the
+// four gates of its (pixel, channel) and the gate math runs in the epilogue
+// with the f32 __fmul_rn/__fadd_rn arithmetic of the f32 route.  Shared-
+// memory rows are padded by 16 bytes, which makes the ldmatrix rows of a
+// phase fall in distinct banks.  Where F % 8 == 0 the epilogue reads zx and
+// c and writes c and y as bf16 pairs, all loads of an m16 tile first.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: 1.19 ms per downscale sequence (211 TFLOP/s; the f32 route 12.1
+// ms, cuDNN's 23 convs 0.72 ms) and 0.51 ms at the training shape (2, 24,
+// 24, 24, 128), against bounds of 0.253 and 0.0316 ms.
+//
+// The tile follows the shape (ops/convlstm.py:choose_tile): the large tile,
+// BM = 144 pixels x BJ = 32 channels (128 gate columns, 6 warps of 48 x 64,
+// two blocks per SM at up to 168 registers), where it gives at least one
+// block per SM (downscale: 64 x 4 = 256 blocks, one wave of the 264 that
+// fit on 132 SMs; 128 pixels would give 288, a wave and a tail); otherwise
+// the small tile, BM = 64 x BJ = 16 (4 warps of 32 x 32; training, M =
+// 1152: 18 x 8 = 144 blocks instead of 32).
+//
+// Why mma.sync and not wgmma.  wgmma (m64nNk16 from shared memory) is the
+// only way to the full 989 TFLOP/s, but its 64-row granularity does not cut
+// the 9216-pixel GEMM into one wave on 132 SMs with few enough registers: a
+// wgmma form with one warpgroup per 64 x 128 tile (64-byte swizzle, a
+// 4-slot ring) was right but no faster on the H100, since its 64-row tile
+// re-reads the packed slab from L2 for each of 144 pixel tiles per step.
+// mma.sync with ldmatrix takes a padded row-major tile of any height.
+// Left for later: halo reuse across the nine taps (each h_{t-1} row is
+// gathered nine times, from L2), wgmma with two consumer warpgroups and a
+// tile schedule that fills the card, a persistent kernel that keeps the
+// state in L2 across steps, and warp specialisation (a producer warp for
+// the copies).
+//
+// The f32 route (the parity type) stays on the CUDA cores in full f32: a
+// 64 x 64-channel tile with a 4 x (4 x 4) register tile per thread.  TF32
+// tensor cores would keep about three decimal digits and break the 1e-4
+// parity with the plain version that the tests hold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
+
+// ---- The f32 route: CUDA cores (the parity type) ----
 
 constexpr int BM = 64;        // pixels per block
 constexpr int BJ = 64;        // channels per block (x4 gates = 256 columns)
@@ -76,6 +124,15 @@ __device__ __forceinline__ float gate(float x, bool hard) {
     return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.0f), 1.0f);
   }
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The cell update from the four pre-activations and c_{t-1}, in f32.
+__device__ __forceinline__ void cell(float zi, float zf, float zc, float zo,
+                                     float c_prev, bool hard, float& c_new,
+                                     float& h_new) {
+  c_new = __fadd_rn(__fmul_rn(gate(zf, hard), c_prev),
+                    __fmul_rn(gate(zi, hard), tanhf(zc)));
+  h_new = __fmul_rn(gate(zo, hard), tanhf(c_new));
 }
 
 template <typename T>
@@ -218,33 +275,411 @@ convlstm_step_kernel(const T* __restrict__ zx, const T* __restrict__ rk,
   }
 }
 
-template <typename T>
-int launch(const void* zx, const void* rk, void* y, void* c, int B, int Tn,
-           int H, int W, int F, int t, int hard_sig, void* stream) {
+
+// ---- The bf16 route: tensor cores ----
+
+constexpr int KC = 32;      // depth per stage: one tap, KC channels
+constexpr int STAGES = 3;   // cp.async ring
+constexpr int PAD = 8;      // bf16 elements of padding per shared row
+
+template <int BM_, int BJ_, int WM_, int WN_>
+struct Tile {
+  static constexpr int BM = BM_;             // pixels per block
+  static constexpr int BJ = BJ_;             // channels per block
+  static constexpr int BN = 4 * BJ_;         // gate columns per block
+  static constexpr int WM = WM_;             // warps along the pixels
+  static constexpr int THREADS = 32 * WM_ * WN_;
+  static constexpr int MIN_BLOCKS = 512 / THREADS;  // blocks per SM
+  static constexpr int WROWS = BM_ / WM_;    // pixels per warp
+  static constexpr int MT = WROWS / 16;      // m16 tiles per warp
+  static constexpr int JW = BJ_ / WN_;       // channels per warp
+  static constexpr int JT = JW / 8;          // n8 tiles per gate and warp
+  static constexpr int AS = KC + PAD;        // A row stride (elements)
+  static constexpr int BS = BN + PAD;        // B row stride (elements)
+  static constexpr int A_ELEMS = BM_ * AS;
+  static constexpr int STAGE_ELEMS = A_ELEMS + KC * BS;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_ELEMS * 2;
+  static constexpr int A_ITERS = BM_ * (KC / 8) / THREADS;  // 16-B copies
+  static constexpr int B_COPIES = KC * BN / 8;
+  static constexpr int B_ITERS = (B_COPIES + THREADS - 1) / THREADS;
+  static_assert(WROWS % 16 == 0 && JW % 8 == 0, "warp tile");
+  static_assert(BM_ * (KC / 8) % THREADS == 0, "A copies per thread");
+  static_assert((AS * 2) % 16 == 0 && ((AS * 2 / 16) & 1), "A row stride");
+  static_assert((BS * 2) % 16 == 0 && ((BS * 2 / 16) & 1), "B row stride");
+};
+using LargeTile = Tile<144, 32, 3, 2>;   // 192 threads
+using SmallTile = Tile<64, 16, 2, 2>;    // 128 threads
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte copy; src_bytes = 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, "
+               "[%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+                 "r"(b[1]));
+}
+
+// VEC: F % 8 == 0, so the A gather is 16-byte copies of 8 channels.
+template <class C, bool VEC>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+convlstm_step_tc(const __nv_bfloat16* __restrict__ zx,
+                 const __nv_bfloat16* __restrict__ wpack,
+                 __nv_bfloat16* __restrict__ y, __nv_bfloat16* __restrict__ c,
+                 int B, int Tn, int H, int W, int F, int Fp, int t,
+                 bool hard) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % C::WM;
+  const int wn = warp / C::WM;
+  const int HW = H * W;
+  const int M = B * HW;
+  const int m0 = blockIdx.x * C::BM;
+  const int j0 = blockIdx.y * C::BJ;
+  const int chunks = Fp / KC;
+  const int KT = t > 0 ? 9 * chunks : 0;
+  const __nv_bfloat16* wblk = wpack + (size_t)blockIdx.y * 9 * Fp * C::BN;
+
+  float acc[C::MT][4 * C::JT][4];
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int n = 0; n < 4 * C::JT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+
+  const size_t F4 = 4 * (size_t)F;
+
+  if (KT > 0) {
+    // This thread's A copies: row r = (tid + it*THREADS) / (KC/8), fixed
+    // across stages, so its pixel is decoded once.
+    int a_py[C::A_ITERS], a_px[C::A_ITERS];
+    size_t a_base[C::A_ITERS];
+#pragma unroll
+    for (int it = 0; it < C::A_ITERS; ++it) {
+      const int m = m0 + (tid + it * C::THREADS) / (KC / 8);
+      const int mm = m < M ? m : 0;
+      const int b = mm / HW;
+      const int p = mm % HW;
+      a_py[it] = m < M ? p / W : -100;   // -100: never inside the image
+      a_px[it] = p % W;
+      a_base[it] = ((size_t)b * Tn + (t - 1)) * HW;
+    }
+
+    auto load_stage = [&](int kt, int slot) {
+      __nv_bfloat16* As = smem + slot * C::STAGE_ELEMS;
+      __nv_bfloat16* Bs = As + C::A_ELEMS;
+      const int tap = kt / chunks;
+      const int c0 = (kt % chunks) * KC;
+      const int dy = tap / 3 - 1;
+      const int dx = tap % 3 - 1;
+      const __nv_bfloat16* bsrc = wblk + (size_t)kt * KC * C::BN;
+#pragma unroll
+      for (int it = 0; it < C::B_ITERS; ++it) {
+        const int i = tid + it * C::THREADS;
+        if (C::B_COPIES % C::THREADS != 0 && i >= C::B_COPIES) break;
+        const int r = i / (C::BN / 8);
+        const int q = i % (C::BN / 8);
+        cp_async16(smem_u32(Bs + r * C::BS + q * 8),
+                   bsrc + (size_t)r * C::BN + q * 8, 16);
+      }
+      if constexpr (VEC) {
+#pragma unroll
+        for (int it = 0; it < C::A_ITERS; ++it) {
+          const int i = tid + it * C::THREADS;
+          const int r = i / (KC / 8);
+          const int ch = c0 + (i % (KC / 8)) * 8;
+          const int sy = a_py[it] + dy;
+          const int sx = a_px[it] + dx;
+          const bool in = ch < F && sy >= 0 && sy < H && sx >= 0 && sx < W;
+          const __nv_bfloat16* src =
+              in ? y + (a_base[it] + (size_t)sy * W + sx) * F + ch : y;
+          cp_async16(smem_u32(As + r * C::AS + (i % (KC / 8)) * 8), src,
+                     in ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < C::BM * KC; i += C::THREADS) {
+          const int r = i / KC;
+          const int ch = c0 + i % KC;
+          const int m = m0 + r;
+          __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
+          if (m < M && ch < F) {
+            const int b = m / HW;
+            const int p = m % HW;
+            const int sy = p / W + dy;
+            const int sx = p % W + dx;
+            if (sy >= 0 && sy < H && sx >= 0 && sx < W) {
+              v = y[(((size_t)b * Tn + (t - 1)) * HW + (size_t)sy * W + sx) *
+                        F + ch];
+            }
+          }
+          As[r * C::AS + i % KC] = v;
+        }
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < KT) load_stage(s, s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      // Stage kt has landed; every thread is done with stage kt - 1, whose
+      // slot the prefetch below refills.
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (kt + STAGES - 1 < KT) {
+        load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+      }
+      cp_async_commit();
+      const __nv_bfloat16* As = smem + (kt % STAGES) * C::STAGE_ELEMS;
+      const __nv_bfloat16* Bs = As + C::A_ELEMS;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t af[C::MT][4];
+#pragma unroll
+        for (int mi = 0; mi < C::MT; ++mi) {
+          const int row = wm * C::WROWS + mi * 16 + (lane & 15);
+          ldmatrix_x4(af[mi],
+                      smem_u32(As + row * C::AS + kk + (lane >> 4) * 8));
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const __nv_bfloat16* brow =
+              Bs + (kk + (lane & 15)) * C::BS + g * C::BJ + wn * C::JW;
+          uint32_t bf[C::JT][2];
+          if constexpr (C::JT % 2 == 0) {
+            // Two n8 tiles per ldmatrix: lanes 16-31 address the second.
+#pragma unroll
+            for (int jt = 0; jt < C::JT; jt += 2) {
+              uint32_t b4[4];
+              ldmatrix_x4_trans(b4, smem_u32(brow + jt * 8 + (lane >> 4) * 8));
+              bf[jt][0] = b4[0];
+              bf[jt][1] = b4[1];
+              bf[jt + 1][0] = b4[2];
+              bf[jt + 1][1] = b4[3];
+            }
+          } else {
+#pragma unroll
+            for (int jt = 0; jt < C::JT; ++jt) {
+              ldmatrix_x2_trans(bf[jt], smem_u32(brow + jt * 8));
+            }
+          }
+#pragma unroll
+          for (int jt = 0; jt < C::JT; ++jt) {
+#pragma unroll
+            for (int mi = 0; mi < C::MT; ++mi) {
+              mma_bf16(acc[mi][g * C::JT + jt], af[mi], bf[jt]);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  // Epilogue: accumulator element (half, e) of n8 tile (g, jt) is pixel row
+  // lane/4 + 8*half and channel 2*(lane%4) + e of that tile, the same
+  // channel for the four gates.  With F % 8 == 0 the channel pair (e = 0, 1)
+  // is read and written as one bf16x2, and each m16 tile's loads are all
+  // issued before its gate math.
+#pragma unroll
+  for (int mi = 0; mi < C::MT; ++mi) {
+    size_t step_row[2], c_row[2];
+    bool row_ok[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * C::WROWS + mi * 16 + (lane >> 2) + 8 * half;
+      row_ok[half] = m < M;
+      const int mm = row_ok[half] ? m : 0;
+      const int b = mm / HW;
+      step_row[half] = ((size_t)b * Tn + t) * HW + (mm - b * HW);
+      c_row[half] = (size_t)mm;
+    }
+    if constexpr (VEC) {
+      const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
+      __nv_bfloat162 zv[2][C::JT][4], cv[2][C::JT];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int jt = 0; jt < C::JT; ++jt) {
+          const int j = j0 + wn * C::JW + jt * 8 + 2 * (lane & 3);
+          const bool in = row_ok[half] && j < F;
+          const __nv_bfloat16* z = zx + step_row[half] * F4 + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            zv[half][jt][g] =
+                in ? *reinterpret_cast<const __nv_bfloat162*>(z + g * F)
+                   : zero2;
+          }
+          cv[half][jt] =
+              in && t > 0 ? *reinterpret_cast<const __nv_bfloat162*>(
+                                c + c_row[half] * F + j)
+                          : zero2;
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int jt = 0; jt < C::JT; ++jt) {
+          const int j = j0 + wn * C::JW + jt * 8 + 2 * (lane & 3);
+          if (!row_ok[half] || j >= F) continue;
+          float cn[2], hn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = 2 * half + e;
+            float zg[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              zg[g] = (e ? __high2float(zv[half][jt][g])
+                         : __low2float(zv[half][jt][g])) +
+                      acc[mi][g * C::JT + jt][q];
+            }
+            const float c_prev = e ? __high2float(cv[half][jt])
+                                   : __low2float(cv[half][jt]);
+            cell(zg[0], zg[1], zg[2], zg[3], c_prev, hard, cn[e], hn[e]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(c + c_row[half] * F + j) =
+              __floats2bfloat162_rn(cn[0], cn[1]);
+          *reinterpret_cast<__nv_bfloat162*>(y + step_row[half] * F + j) =
+              __floats2bfloat162_rn(hn[0], hn[1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!row_ok[half]) continue;
+#pragma unroll
+        for (int jt = 0; jt < C::JT; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + wn * C::JW + jt * 8 + 2 * (lane & 3) + e;
+            if (j >= F) continue;
+            const int q = 2 * half + e;
+            const __nv_bfloat16* z = zx + step_row[half] * F4 + j;
+            const float c_prev =
+                t > 0 ? to_f32(c[c_row[half] * F + j]) : 0.0f;
+            float cn, hn;
+            cell(to_f32(z[0]) + acc[mi][0 * C::JT + jt][q],
+                 to_f32(z[F]) + acc[mi][1 * C::JT + jt][q],
+                 to_f32(z[2 * (size_t)F]) + acc[mi][2 * C::JT + jt][q],
+                 to_f32(z[3 * (size_t)F]) + acc[mi][3 * C::JT + jt][q],
+                 c_prev, hard, cn, hn);
+            c[c_row[half] * F + j] = from_f32<__nv_bfloat16>(cn);
+            y[step_row[half] * F + j] = from_f32<__nv_bfloat16>(hn);
+          }
+        }
+      }
+    }
+  }
+}
+
+int launch_f32(const void* zx, const void* rk, void* y, void* c, int B,
+               int Tn, int H, int W, int F, int t, int hard_sig,
+               void* stream) {
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BJ - 1) / BJ));
-  convlstm_step_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(zx), static_cast<const T*>(rk),
-      static_cast<T*>(y), static_cast<T*>(c), B, Tn, H, W, F, t,
+  convlstm_step_kernel<float><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(zx), static_cast<const float*>(rk),
+      static_cast<float*>(y), static_cast<float*>(c), B, Tn, H, W, F, t,
       hard_sig != 0);
   return (int)cudaGetLastError();
 }
 
+template <class C, bool VEC>
+int launch_tc(const void* zx, const void* wpack, void* y, void* c, int B,
+              int Tn, int H, int W, int F, int t, int hard_sig,
+              void* stream) {
+  auto kernel = convlstm_step_tc<C, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int M = B * H * W;
+  const int Fp = (F + KC - 1) / KC * KC;
+  const dim3 grid((unsigned)((M + C::BM - 1) / C::BM),
+                  (unsigned)((F + C::BJ - 1) / C::BJ));
+  kernel<<<grid, C::THREADS, C::SMEM, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(zx),
+      static_cast<const __nv_bfloat16*>(wpack),
+      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(c), B, Tn,
+      H, W, F, Fp, t, hard_sig != 0);
+  return (int)cudaGetLastError();
+}
+
+template <class C>
+int launch_bf16(const void* zx, const void* wpack, void* y, void* c, int B,
+                int Tn, int H, int W, int F, int t, int hard_sig,
+                void* stream) {
+  if (F % 8 == 0) {
+    return launch_tc<C, true>(zx, wpack, y, c, B, Tn, H, W, F, t, hard_sig,
+                              stream);
+  }
+  return launch_tc<C, false>(zx, wpack, y, c, B, Tn, H, W, F, t, hard_sig,
+                             stream);
+}
+
 }  // namespace
 
-// One recurrence step t.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// cudaGetLastError() code of the launch (0 on success); an unknown dtype
-// returns cudaErrorInvalidValue without launching.
+// One recurrence step t.  dtype: 0 = float32 (rk as (3, 3, F, 4F), CUDA
+// cores), 1 = bfloat16 (rk packed for the tile, tensor cores).  tile (bf16
+// only): 0 = large (BM 128, BJ 32), 1 = small (BM 64, BJ 16); the packed
+// slab must have been made with that tile's BJ.  Returns the
+// cudaGetLastError() code of the launch (0 on success); an unknown dtype or
+// tile, or more than 2^31 - 1 pixels, returns cudaErrorInvalidValue without
+// launching.
 extern "C" int windtpu_convlstm_step(int dtype, const void* zx, const void* rk,
                                      void* y, void* c, int B, int T, int H,
                                      int W, int F, int t, int hard_sig,
-                                     void* stream) {
+                                     int tile, void* stream) {
+  if ((long long)B * H * W > 2147483647LL) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    return launch<float>(zx, rk, y, c, B, T, H, W, F, t, hard_sig, stream);
+    return launch_f32(zx, rk, y, c, B, T, H, W, F, t, hard_sig, stream);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
-                                 stream);
+  if (dtype == 1 && tile == 0) {
+    return launch_bf16<LargeTile>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
+                                  stream);
+  }
+  if (dtype == 1 && tile == 1) {
+    return launch_bf16<SmallTile>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
+                                  stream);
   }
   return (int)cudaErrorInvalidValue;
 }

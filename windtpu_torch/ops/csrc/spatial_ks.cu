@@ -15,126 +15,226 @@
 // needs per pair and threshold 2*H*W comparisons, H*W differences, 2*OH*W
 // vertical and 2*OH*OW horizontal adds and 2*OH*OW for |.| and max: 75,520
 // operations, 7.25e8 in all, 10.8 us at the 67e12 non-tensor operations per
-// second of the data sheet.  It is bound by the arithmetic on the CUDA cores.
+// second of the data sheet.  It is bound by operations on the CUDA cores, at
+// 0.0108 ms.
 //
 // What the design does about it.  The TPU kernel turns the box filter into
 // two banded matmuls because cumsum does not lower there; here the filter is
-// two passes of sliding sums in shared memory.  A block owns one pair and a
-// band of output rows; it loads the band's input rows once and loops over the
-// thresholds on chip, so device memory is read once and written once.  Since
-// both means share the denominator patch^2, the block counts the signed
-// difference d = (real <= p) - (fake <= p) in {-1, 0, 1} as integers: window
-// sums of d are exact, the running max of |sum| is an integer, and the one
-// division by patch^2 happens when the band is written.  Each pass cuts its
-// lines into segments of SEG outputs (a direct sum of patch terms, then
-// SEG-1 slides), which gives the 256 threads enough independent work at the
-// price of patch/SEG extra reads.  A NaN is not <= p, as in the plain
-// version.  Bands are sized so that N * bands blocks cover the card and the
-// band fits in shared memory.
+// two passes of sliding sums in shared memory, over integers.  A block owns
+// one pair and a band of output rows and loads the band's input rows once,
+// so device memory is read once and written once.  Both means share the
+// denominator patch^2, so it counts window sums of real <= p and of fake <=
+// p as integers, takes the max of their |difference| as an integer, and
+// divides by patch^2 once, when the band is written.
+//
+// The thresholds run in parallel, not in sequence:
+// - Each pixel's threshold index k(v) = the first k with v <= points[k]
+//   (n_points for a NaN, which is never <= p, and for a value above every
+//   point) is found once, by a binary search over the points themselves
+//   (linspace's points are not exactly uniform, so no arithmetic from lo and
+//   hi could stand in for them), and kept in shared memory beside the fake
+//   field's; the search runs without branches, 16 values at once.  As
+//   the points ascend, [v <= points[k]] = [k >= k(v)]: no float comparison
+//   is left per threshold.
+// - L consecutive thresholds share one 32-bit word, one count per byte (L =
+//   4, where patch^2 < 256) or per half (L = 2; a patch of 256 or more needs
+//   more shared memory than a block has in any case).  The indicator word
+//   of a pixel for thresholds k0..k0+L-1 is one funnel shift of 0x01010101
+//   (or 0x00010001) by k(v) - k0 clamped to [0, L] fields, and one integer
+//   add counts L thresholds at once; no count can carry into its
+//   neighbour.
+// - A work item is (group of L thresholds, strip of output columns); the
+//   WARPS warps of a block take items in turn, with no block barrier between
+//   them.  Vertical pass: lanes over the strip's columns slide down the band
+//   and write the real and fake counts to the warp's own buffer.  Horizontal
+//   pass: lanes over the band's rows slide along the strip, and each output's
+//   max over the item's L thresholds of |real - fake| goes into the band's
+//   running max by a shared-memory integer atomicMax.
+// Bands are sized so that the N * bands blocks all fit on the card at once
+// (three per SM), and the band fits in shared memory.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: 0.098 ms at the training step's shape, 9x the 0.0108 ms bound (the
+// thresholds in sequence took 0.316 ms).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int SEG = 16;                 // outputs per sliding-sum segment
-constexpr int TARGET_BLOCKS = 264;      // two blocks for each of 132 SMs
+constexpr int WARPS = 6;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TARGET_BLOCKS = 396;      // three blocks for each of 132 SMs
 constexpr size_t MAX_SMEM = 232448;     // what one block can opt in to
 
 struct Layout {
   int rows;      // output rows per band
   int rin;       // input rows per band: rows + patch - 1
-  int wp;        // padded (odd) stride of the vertical sums
-  int owp;       // padded (odd) stride of the running max
+  int owp;       // odd stride (in ints) of the running max
+  int sw;        // output columns per strip
+  int cwp;       // odd stride (in uint2) of a warp's counts: >= sw + patch - 1
   size_t bytes;  // dynamic shared memory
 };
 
-Layout layout(int W, int OW, int patch, int rows) {
+// Point k sits at k + k/32 in shared memory, so that the binary search's
+// probes at multiples of powers of two fall in different banks.
+__host__ __device__ __forceinline__ int skew(int k) { return k + (k >> 5); }
+
+Layout layout(int W, int OW, int patch, int n_points, int rows) {
   Layout l;
   l.rows = rows;
   l.rin = rows + patch - 1;
-  l.wp = W | 1;
   l.owp = OW | 1;
-  l.bytes = 2 * (size_t)l.rin * W * sizeof(float)   // the two fields
-            + (size_t)rows * l.wp * sizeof(int)      // vertical sums
-            + (size_t)rows * l.owp * sizeof(int)     // running max
-            + (size_t)l.rin * W;                     // d, one byte a pixel
+  l.sw = patch <= 16 ? 33 - patch : 32;   // sw + patch - 1 = 32 lanes
+  if (l.sw > OW) l.sw = OW;
+  l.cwp = (l.sw + patch - 1) | 1;
+  l.bytes = (size_t)skew(n_points) * sizeof(float)           // the points
+            + (size_t)l.rin * W * sizeof(int2)               // k(real), k(fake)
+            + (size_t)rows * l.owp * sizeof(int)             // running max
+            + (size_t)WARPS * rows * l.cwp * sizeof(uint2);  // counts
   return l;
 }
 
+// For U values at once, the first k with v <= points[k] (n for a NaN or a v
+// above every point): a binary search over the ascending points, written as
+// the count of leading points with !(v <= p), with no branch.
+template <int U>
+__device__ __forceinline__ void threshold_index(const float* pts, int n,
+                                                const float (&v)[U],
+                                                int (&pos)[U]) {
+#pragma unroll
+  for (int q = 0; q < U; ++q) pos[q] = 0;
+  for (int step = 1 << (31 - __clz(n)); step > 0; step >>= 1) {
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int c = pos[q] + step;
+      if (c <= n && !(v[q] <= pts[skew(c - 1)])) pos[q] = c;
+    }
+  }
+}
+
+// Field i (of L, each 32/L bits wide) of the result is [k0 + i >= kidx],
+// from kb = kidx * 32/L and k0b = k0 * 32/L: the funnel shift clamps at 32.
+template <int L>
+__device__ __forceinline__ uint32_t below(int kb, int k0b) {
+  constexpr uint32_t unit = L == 4 ? 0x01010101u : 0x00010001u;
+  return __funnelshift_lc(0u, unit, (unsigned)max(kb - k0b, 0));
+}
+
+// max over the L fields of |a - b|.
+template <int L>
+__device__ __forceinline__ int max_abs_diff(uint32_t a, uint32_t b) {
+  if (L == 4) {
+    const uint32_t d = __vabsdiffu4(a, b);
+    const uint32_t m = __vmaxu4(d, d >> 16);
+    return (int)max(m & 0xffu, (m >> 8) & 0xffu);
+  }
+  const uint32_t d = __vabsdiffu2(a, b);
+  return (int)max(d & 0xffffu, d >> 16);
+}
+
+template <int L>
 __global__ void __launch_bounds__(THREADS)
 spatial_ks_kernel(const float* __restrict__ real,
                   const float* __restrict__ fake,
                   const float* __restrict__ points, float* __restrict__ out,
-                  int H, int W, int patch, int n_points, int rows, int wp,
-                  int owp) {
+                  int H, int W, int patch, int n_points, int rows, int owp,
+                  int sw, int cwp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int OH = H - patch + 1;
   const int OW = W - patch + 1;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const size_t n = blockIdx.x;
   const int y0 = blockIdx.y * rows;          // first output row of the band
   const int r_out = min(rows, OH - y0);
   const int r_in = r_out + patch - 1;
   const int rin_max = rows + patch - 1;
 
-  float* fr = reinterpret_cast<float*>(smem);
-  float* ff = fr + (size_t)rin_max * W;
-  int* col = reinterpret_cast<int*>(ff + (size_t)rin_max * W);
-  int* mx = col + (size_t)rows * wp;
-  signed char* d = reinterpret_cast<signed char*>(mx + (size_t)rows * owp);
+  // The 8-byte arrays first.  kp holds k(real) and k(fake) times 32/L.
+  uint2* cnt = reinterpret_cast<uint2*>(smem) + (size_t)warp * rows * cwp;
+  int2* kp = reinterpret_cast<int2*>(reinterpret_cast<uint2*>(smem) +
+                                     (size_t)WARPS * rows * cwp);
+  int* mx = reinterpret_cast<int*>(kp + (size_t)rin_max * W);
+  float* pts = reinterpret_cast<float*>(mx + (size_t)rows * owp);
 
-  const size_t base = (n * H + y0) * W;      // the band's rows are contiguous
-  for (int i = tid; i < r_in * W; i += THREADS) {
-    fr[i] = real[base + i];
-    ff[i] = fake[base + i];
-  }
+  for (int i = tid; i < n_points; i += THREADS) pts[skew(i)] = points[i];
   for (int i = tid; i < r_out * owp; i += THREADS) mx[i] = 0;
   __syncthreads();
 
-  const int vseg = (r_out + SEG - 1) / SEG;
-  const int hseg = (OW + SEG - 1) / SEG;
-  for (int k = 0; k < n_points; ++k) {
-    const float p = points[k];
-    for (int i = tid; i < r_in * W; i += THREADS) {
-      d[i] = (signed char)((int)(fr[i] <= p) - (int)(ff[i] <= p));
+  const size_t base = (n * H + y0) * W;      // the band's rows are contiguous
+  constexpr int U = 8;                       // pixels per thread and pass
+  for (int i0 = tid; i0 < r_in * W; i0 += U * THREADS) {
+    float v[2 * U];
+    int k[2 * U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = min(i0 + u * THREADS, r_in * W - 1);
+      v[2 * u] = real[base + i];
+      v[2 * u + 1] = fake[base + i];
     }
-    __syncthreads();
-
-    // Vertical sliding sums: col[y][x] = sum of d[y .. y+patch-1][x].
-    for (int item = tid; item < W * vseg; item += THREADS) {
-      const int x = item % W;
-      const int ya = (item / W) * SEG;
-      const int yb = min(ya + SEG, r_out);
-      int run = 0;
-      for (int dy = 0; dy < patch; ++dy) run += d[(ya + dy) * W + x];
-      col[ya * wp + x] = run;
-      for (int y = ya + 1; y < yb; ++y) {
-        run += d[(y + patch - 1) * W + x] - d[(y - 1) * W + x];
-        col[y * wp + x] = run;
+    threshold_index(pts, n_points, v, k);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < r_in * W) {
+        kp[i] = make_int2(k[2 * u] * (32 / L), k[2 * u + 1] * (32 / L));
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    // Horizontal sliding sums of col, |.| and the running max.  The next
-    // threshold's d does not touch col or mx, and its vertical pass starts
-    // only after the barrier above, so no third barrier is needed.
-    for (int item = tid; item < r_out * hseg; item += THREADS) {
-      const int y = item % r_out;
-      const int xa = (item / r_out) * SEG;
-      const int xb = min(xa + SEG, OW);
-      const int* line = col + y * wp;
-      int* best = mx + y * owp;
-      int run = 0;
-      for (int dx = 0; dx < patch; ++dx) run += line[xa + dx];
-      best[xa] = max(best[xa], abs(run));
-      for (int x = xa + 1; x < xb; ++x) {
-        run += line[x + patch - 1] - line[x - 1];
-        best[x] = max(best[x], abs(run));
+  const int strips = (OW + sw - 1) / sw;
+  const int groups = (n_points + L - 1) / L;
+  const int cw = sw + patch - 1;             // input columns of a strip
+  for (int item = warp; item < groups * strips; item += WARPS) {
+    const int k0b = (item / strips) * 32;     // k0 * 32/L, k0 = group * L
+    const int x0 = (item % strips) * sw;
+    const int xs = min(sw, OW - x0);         // outputs in this strip
+    // Vertical pass: cnt[y][cx] = counts over input rows y .. y+patch-1 of
+    // column x0 + cx.  Thresholds k >= n_points count 1 in both fields.
+    for (int cx = lane; cx < xs + patch - 1 && cx < cw; cx += 32) {
+      const int2* colp = kp + x0 + cx;
+      uint32_t r = 0, f = 0;
+      for (int dy = 0; dy < patch; ++dy) {
+        const int2 kk = colp[dy * W];
+        r += below<L>(kk.x, k0b);
+        f += below<L>(kk.y, k0b);
+      }
+      cnt[cx] = make_uint2(r, f);
+#pragma unroll 4
+      for (int y = 1; y < r_out; ++y) {
+        const int2 in = colp[(y + patch - 1) * W];
+        const int2 gone = colp[(y - 1) * W];
+        r += below<L>(in.x, k0b) - below<L>(gone.x, k0b);
+        f += below<L>(in.y, k0b) - below<L>(gone.y, k0b);
+        cnt[y * cwp + cx] = make_uint2(r, f);
       }
     }
+    __syncwarp();
+    // Horizontal pass: window sums along the strip, max |real - fake|.
+    for (int y = lane; y < r_out; y += 32) {
+      const uint2* line = cnt + y * cwp;
+      int* best = mx + y * owp + x0;
+      uint32_t r = 0, f = 0;
+      for (int dx = 0; dx < patch; ++dx) {
+        r += line[dx].x;
+        f += line[dx].y;
+      }
+      atomicMax(best, max_abs_diff<L>(r, f));
+#pragma unroll 4
+      for (int x = 1; x < xs; ++x) {
+        const uint2 in = line[x + patch - 1];
+        const uint2 gone = line[x - 1];
+        r += in.x - gone.x;
+        f += in.y - gone.y;
+        atomicMax(best + x, max_abs_diff<L>(r, f));
+      }
+    }
+    __syncwarp();   // cnt is rewritten by the warp's next item
   }
   __syncthreads();
 
@@ -147,40 +247,57 @@ spatial_ks_kernel(const float* __restrict__ real,
   }
 }
 
+template <int L>
+int launch(const void* real, const void* fake, const void* points, void* out,
+           int N, int H, int W, int patch, int n_points, const Layout& l,
+           int bands, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      spatial_ks_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)N, (unsigned)bands);
+  spatial_ks_kernel<L><<<grid, THREADS, l.bytes, (cudaStream_t)stream>>>(
+      static_cast<const float*>(real), static_cast<const float*>(fake),
+      static_cast<const float*>(points), static_cast<float*>(out), H, W, patch,
+      n_points, l.rows, l.owp, l.sw, l.cwp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // KS images of N field pairs: real, fake (N, H, W) f32 contiguous, points
-// (n_points,) f32, out (N, H-patch+1, W-patch+1) f32.  Returns the launch's
-// cudaGetLastError() code (0 on success), or cudaErrorInvalidValue without
-// launching for sizes it does not take, or cudaErrorInvalidConfiguration when
-// even a one-row band does not fit in shared memory.
+// (n_points,) f32 ascending, out (N, H-patch+1, W-patch+1) f32.  Returns the
+// launch's cudaGetLastError() code (0 on success), or cudaErrorInvalidValue
+// without launching for sizes it does not take, or
+// cudaErrorInvalidConfiguration when even a one-row band does not fit in
+// shared memory.
 extern "C" int windtpu_spatial_ks(const void* real, const void* fake,
                                   const void* points, void* out, int N, int H,
                                   int W, int patch, int n_points,
                                   void* stream) {
-  if (N < 1 || patch < 1 || patch > H || patch > W || n_points < 1) {
+  if (N < 1 || patch < 1 || patch > H || patch > W || n_points < 1 ||
+      n_points > (1 << 25)) {
     return (int)cudaErrorInvalidValue;
   }
   const int OH = H - patch + 1;
   const int OW = W - patch + 1;
-  int bands = (TARGET_BLOCKS + N - 1) / N;
+  int bands = TARGET_BLOCKS / N;             // no more blocks than fit at once
+  if (bands < 1) bands = 1;
   if (bands > OH) bands = OH;
   int rows = (OH + bands - 1) / bands;
-  while (rows > 1 && layout(W, OW, patch, rows).bytes > MAX_SMEM) {
+  while (rows > 1 && layout(W, OW, patch, n_points, rows).bytes > MAX_SMEM) {
     rows = (rows + 1) / 2;
   }
-  const Layout l = layout(W, OW, patch, rows);
-  if (l.bytes > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  const Layout l = layout(W, OW, patch, n_points, rows);
+  if (l.bytes > MAX_SMEM || patch > 255) {   // patch > 255 never fits
+    return (int)cudaErrorInvalidConfiguration;
+  }
   bands = (OH + rows - 1) / rows;
   if (bands > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      spatial_ks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)l.bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)N, (unsigned)bands);
-  spatial_ks_kernel<<<grid, THREADS, l.bytes, (cudaStream_t)stream>>>(
-      static_cast<const float*>(real), static_cast<const float*>(fake),
-      static_cast<const float*>(points), static_cast<float*>(out), H, W, patch,
-      n_points, rows, l.wp, l.owp);
-  return (int)cudaGetLastError();
+  if (patch * patch < 256) {
+    return launch<4>(real, fake, points, out, N, H, W, patch, n_points, l,
+                     bands, stream);
+  }
+  return launch<2>(real, fake, points, out, N, H, W, patch, n_points, l,
+                   bands, stream);
 }

@@ -5,7 +5,9 @@
 (B, T, H, W, C) in, the mean KS image (OH, OW) over all B*T*C field pairs
 out.  On CUDA tensors it launches ``csrc/spatial_ks.cu`` once; on CPU
 tensors it runs the plain version,
-:func:`windtpu_torch.metrics.metrics.spatially_convolved_ks_stat`.  There
+:func:`windtpu_torch.metrics.metrics.spatially_convolved_ks_stat`.  The
+kernel compares each value with the thresholds once, as the index of the
+first threshold it does not exceed.  There
 is no fallback from the kernel to the plain version, and no gradient: the
 metric is computed on detached tensors.
 """
@@ -59,22 +61,37 @@ def spatial_ks(real: torch.Tensor, fake: torch.Tensor,
     if real.device.type != "cuda":
         raise ValueError(f"spatial_ks runs on CUDA or CPU tensors; got "
                          f"{real.device}")
-    kernel = bind("spatial_ks", "windtpu_spatial_ks", _ARGTYPES)
+    if lo > hi:
+        # The kernel finds each value's threshold index by a binary search,
+        # which needs ascending points.
+        raise ValueError(f"spatial_ks on the card needs lo <= hi; got "
+                         f"{lo} > {hi}")
     fr = ks_fields(real).contiguous()
     ff = ks_fields(fake).contiguous()
-    points = ks_thresholds(num_points, lo, hi, real.device)
-    n = fr.shape[0]
-    out = torch.empty((n, h - patch_size + 1, w - patch_size + 1),
+    out = torch.empty((fr.shape[0], h - patch_size + 1, w - patch_size + 1),
                       dtype=torch.float32, device=real.device)
-    with torch.cuda.device(real.device):
+    launch_spatial_ks(fr, ff, ks_thresholds(num_points, lo, hi, real.device),
+                      out, patch_size)
+    return torch.mean(out, dim=0)
+
+
+spatial_ks.launches = 0
+
+
+def launch_spatial_ks(fr: torch.Tensor, ff: torch.Tensor,
+                      points: torch.Tensor, out: torch.Tensor,
+                      patch_size: int) -> None:
+    """One launch of the kernel on prepared CUDA tensors: the fields ``fr``
+    and ``ff`` (N, H, W) f32 contiguous, ascending f32 ``points`` and the
+    KS images ``out`` (N, H-patch+1, W-patch+1) f32.  Counted in
+    ``spatial_ks.launches``."""
+    kernel = bind("spatial_ks", "windtpu_spatial_ks", _ARGTYPES)
+    n, h, w = fr.shape
+    with torch.cuda.device(fr.device):
         err = kernel(fr.data_ptr(), ff.data_ptr(), points.data_ptr(),
-                     out.data_ptr(), n, h, w, patch_size, num_points,
+                     out.data_ptr(), n, h, w, patch_size, points.numel(),
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"spatial_ks kernel launch failed: CUDA error "
                            f"{err}")
     spatial_ks.launches += 1
-    return torch.mean(out, dim=0)
-
-
-spatial_ks.launches = 0
