@@ -25,7 +25,7 @@ from windtpu_torch.metrics.metrics import (
     ks_thresholds,
     spatially_convolved_ks_stat,
 )
-from windtpu_torch.ops.ks import spatial_ks
+from windtpu_torch.ops.ks import ascending_thresholds, spatial_ks
 
 torch.set_num_threads(2)
 
@@ -142,7 +142,7 @@ def threshold_index_form(real, fake, patch_size, num_points, lo=-30.0,
     """The plain version with each indicator [x <= p_k] replaced by the
     kernel's [k >= k(x)]."""
     fr, ff = ks_fields(real), ks_fields(fake)
-    points = ks_thresholds(num_points, lo, hi, fr.device)
+    points = ascending_thresholds(num_points, lo, hi, fr.device)
     kr, kf = _threshold_index(fr, points), _threshold_index(ff, points)
     oh, ow = fr.shape[-2] - patch_size + 1, fr.shape[-1] - patch_size + 1
     ks = torch.zeros((fr.shape[0], oh, ow))
@@ -159,7 +159,7 @@ def integer_window_form(real, fake, patch_size, num_points, lo=-30.0,
     [k >= k(fake)], the max of |sum| over k, one division by patch^2, then
     the mean over the fields."""
     fr, ff = ks_fields(real), ks_fields(fake)
-    points = ks_thresholds(num_points, lo, hi, fr.device)
+    points = ascending_thresholds(num_points, lo, hi, fr.device)
     kr, kf = _threshold_index(fr, points), _threshold_index(ff, points)
     best = None
     for k in range(num_points):
@@ -175,7 +175,10 @@ def _index_form_fields(kind, seed):
                                           lo=-6.0, hi=6.0)
     real, fake = (torch.from_numpy(a) for a in pair(shape, 3.0, seed))
     points = ks_thresholds(kw["num_points"], kw["lo"], kw["hi"], "cpu")
-    if kind == "nans":
+    if kind == "lo_above_hi":
+        # Descending thresholds: the same set, so the same statistic.
+        kw.update(lo=6.0, hi=-6.0)
+    elif kind == "nans":
         real[0, 1, 2:5, 7, 0] = float("nan")
         fake[1, 0, 10, 3:20, 1] = float("nan")
         fake[0, 0, 0, 0, 0] = float("nan")
@@ -193,14 +196,14 @@ def _index_form_fields(kind, seed):
     return real, fake, kw
 
 
-@pytest.mark.parametrize("kind", ["random", "nans", "ties"])
+@pytest.mark.parametrize("kind", ["random", "nans", "ties", "lo_above_hi"])
 def test_threshold_index_form_equals_plain_exactly(kind):
     real, fake, kw = _index_form_fields(kind, seed=40)
     want = spatially_convolved_ks_stat(real, fake, **kw)
     assert torch.equal(threshold_index_form(real, fake, **kw), want)
 
 
-@pytest.mark.parametrize("kind", ["random", "nans", "ties"])
+@pytest.mark.parametrize("kind", ["random", "nans", "ties", "lo_above_hi"])
 def test_integer_window_form_matches_plain(kind):
     real, fake, kw = _index_form_fields(kind, seed=41)
     want = spatially_convolved_ks_stat(real, fake, **kw)
@@ -209,6 +212,84 @@ def test_integer_window_form_matches_plain(kind):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     same = integer_window_form(real, real.clone(), **kw)
     assert torch.equal(same, torch.zeros_like(same))
+
+
+def _funnel_unit(shift, lanes):
+    """__funnelshift_lc(0, unit, shift) for shifts already clamped at 0: the
+    unit word (1 in each of ``lanes`` fields) shifted left, 0 from 32 on."""
+    unit = np.uint64(0x01010101 if lanes == 4 else 0x00010001)
+    shift = np.minimum(shift, 32).astype(np.uint64)
+    return ((unit << shift) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def _fields(word, lanes):
+    """(…,) uint32 -> (…, lanes) field values."""
+    bits = 32 // lanes
+    return np.stack([(word >> np.uint32(bits * i)) & np.uint32(
+        (1 << bits) - 1) for i in range(lanes)], axis=-1).astype(np.int64)
+
+
+def _abs_diff(a, b, lanes):
+    """__vabsdiffu4 / __vabsdiffu2: |a - b| per field, packed."""
+    bits = 32 // lanes
+    d = np.abs(_fields(a, lanes) - _fields(b, lanes)).astype(np.uint32)
+    return sum(d[..., i] << np.uint32(bits * i) for i in range(lanes))
+
+
+def packed_word_form(real, fake, patch_size, num_points, lo=-30.0, hi=30.0,
+                     rows=16):
+    """The kernel's word arithmetic in uint32, band by band: e = unit +
+    [k >= k(real)] - [k >= k(fake)] for ``lanes`` thresholds per word,
+    prefix sums down the band, window sums slid along each row, the max
+    over groups of |S - patch^2| per field, one division, the mean.  Any
+    carry between fields would show as a wrong count."""
+    lanes = 4 if patch_size <= 10 else 2
+    fr, ff = ks_fields(real), ks_fields(fake)
+    points = ascending_thresholds(num_points, lo, hi, fr.device)
+    kr = _threshold_index(fr, points).numpy()
+    kf = _threshold_index(ff, points).numpy()
+    n, h, w = kr.shape
+    p = patch_size
+    oh, ow = h - p + 1, w - p + 1
+    unit = np.uint32(0x01010101 if lanes == 4 else 0x00010001)
+    p2 = np.uint32(p * p) * unit
+    best = np.zeros((n, oh, ow), np.uint32)
+    for g in range(-(-num_points // lanes)):
+        k0b = g * 32
+        def below(k):
+            return _funnel_unit(np.maximum(k * (32 // lanes) - k0b, 0),
+                                lanes)
+        e = unit + below(kr) - below(kf)
+        for y0 in range(0, oh, rows):
+            r_out = min(rows, oh - y0)
+            band = e[:, y0:y0 + r_out + p - 1]
+            prefix = np.zeros((n, band.shape[1] + 1, w), np.uint32)
+            prefix[:, 1:] = np.cumsum(band, axis=1, dtype=np.uint32)
+            v = prefix[:, p:p + r_out] - prefix[:, :r_out]
+            s = v[:, :, :p].sum(axis=2, dtype=np.uint32)
+            for x in range(ow):
+                if x:
+                    s = s + v[:, :, x + p - 1] - v[:, :, x - 1]
+                # The per-field max as the kernel takes it, (a + b + |a -
+                # b|) / 2 on whole words.
+                a = best[:, y0:y0 + r_out, x]
+                d = _abs_diff(s, p2, lanes)
+                best[:, y0:y0 + r_out, x] = (a + d + _abs_diff(a, d, lanes)
+                                             ) >> np.uint32(1)
+    ks = torch.from_numpy(_fields(best, lanes).max(axis=-1)).float()
+    ks = ks / float(p * p)
+    return torch.mean(ks, dim=0)
+
+
+@pytest.mark.parametrize("kind", ["random", "nans", "ties", "lo_above_hi"])
+@pytest.mark.parametrize("patch_size", [4, 10, 11, 16])
+def test_packed_word_form_equals_integer_window_form(kind, patch_size):
+    # patch <= 10 counts four thresholds per word, 11 and up two; patch 10
+    # is the largest whose byte sums cannot carry.
+    real, fake, kw = _index_form_fields(kind, seed=42)
+    kw["patch_size"] = patch_size
+    got = packed_word_form(real, fake, **kw)
+    assert torch.equal(got, integer_window_form(real, fake, **kw))
 
 
 @pytest.mark.parametrize("num_points,lo,hi", [
@@ -232,10 +313,15 @@ def test_kernel_matches_plain_on_card():
     fields = [tuple(torch.from_numpy(a).cuda()
                     for a in pair(shape, 8.0, seed=30 + i))
               for i, (shape, _) in enumerate(cases)]
-    for kind in ("nans", "ties"):
+    for kind in ("nans", "ties", "lo_above_hi"):
         real, fake, kw = _index_form_fields(kind, seed=34)
         cases.append((real.shape, kw))
         fields.append((real.cuda(), fake.cuda()))
+    # The training step's types: real f32, fake bf16, read as they are.
+    real, fake = pair((2, 3, 96, 96, 2), 8.0, seed=36)
+    cases.append((real.shape, dict(patch_size=9, num_points=100)))
+    fields.append((torch.from_numpy(real).cuda(),
+                   torch.from_numpy(fake).to("cuda", torch.bfloat16)))
     for i, (shape, kw) in enumerate(cases):
         real, fake = fields[i]
         real[0, 0, 1, 1, 0] = float("nan")

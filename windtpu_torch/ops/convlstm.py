@@ -31,8 +31,10 @@ from windtpu_torch.ops._build import bind
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The bf16 route's stage depth and tiles, as csrc/convlstm.cu defines them
-# (KC, LargeTile, SmallTile): code -> (pixels BM, channels BJ) per block.
+# The bf16 route's stage depth and tiles: code -> (pixels BM, channels BJ)
+# per block.  Each launch passes its tile's BM, BJ and K_CHUNK to the C
+# entry, which refuses any that csrc/convlstm.cu does not build (KC,
+# LargeTile, SmallTile).
 K_CHUNK = 32
 TILES = {0: (144, 32), 1: (64, 16)}
 
@@ -119,7 +121,7 @@ def convlstm_seq_plain(zx: torch.Tensor, rk: torch.Tensor, *,
 
 
 _STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
@@ -129,11 +131,11 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
     rk = rk.to(zx.dtype).contiguous()
-    tile = 0
+    bm = bj = 0
     if zx.dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(zx.device).multi_processor_count
-        tile = choose_tile(b * h * w, f, sms)
-        rk = pack_recurrent_kernel(rk, TILES[tile][1])
+        bm, bj = TILES[choose_tile(b * h * w, f, sms)]
+        rk = pack_recurrent_kernel(rk, bj)
     y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
     c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
     with torch.cuda.device(zx.device):
@@ -141,7 +143,7 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
         for s in range(t):
             err = step(_DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
                        y.data_ptr(), c.data_ptr(), b, t, h, w, f, s,
-                       int(hard_sig), tile, stream)
+                       int(hard_sig), bm, bj, K_CHUNK, stream)
             if err:
                 raise RuntimeError(
                     f"convlstm kernel launch failed at step {s}: CUDA error "

@@ -51,17 +51,22 @@
 // c and writes c and y as bf16 pairs, all loads of an m16 tile first.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
-// limit: 1.19 ms per downscale sequence (211 TFLOP/s; the f32 route 12.1
-// ms, cuDNN's 23 convs 0.72 ms) and 0.51 ms at the training shape (2, 24,
-// 24, 24, 128), against bounds of 0.253 and 0.0316 ms.
+// limit: 1.17 to 1.29 ms per downscale sequence (194 to 211 TFLOP/s; the
+// f32 route 12.1 to 12.2 ms, cuDNN's 23 convs 0.72 to 0.78 ms) and 0.5 to
+// 1.2 ms at the training shape (2, 24, 24, 24, 128), where the 24 launches
+// of 20 to 50 us each run at the host's launch rate; the bounds are 0.253
+// and 0.0316 ms.
 //
 // The tile follows the shape (ops/convlstm.py:choose_tile): the large tile,
 // BM = 144 pixels x BJ = 32 channels (128 gate columns, 6 warps of 48 x 64,
-// two blocks per SM at up to 168 registers), where it gives at least one
+// two blocks per SM at up to 168 registers, 3 * (144 * 40 + 32 * 136) * 2 =
+// 60,672 B of dynamic shared memory), where it gives at least one
 // block per SM (downscale: 64 x 4 = 256 blocks, one wave of the 264 that
 // fit on 132 SMs; 128 pixels would give 288, a wave and a tail); otherwise
-// the small tile, BM = 64 x BJ = 16 (4 warps of 32 x 32; training, M =
-// 1152: 18 x 8 = 144 blocks instead of 32).
+// the small tile, BM = 64 x BJ = 16 (4 warps of 32 x 32, 29,184 B;
+// training, M = 1152: 18 x 8 = 144 blocks instead of 32).  The wrapper
+// passes the tile's BM, BJ and KC, and the C entry refuses a tile it does
+// not build.
 //
 // Why mma.sync and not wgmma.  wgmma (m64nNk16 from shared memory) is the
 // only way to the full 989 TFLOP/s, but its 64-row granularity does not cut
@@ -102,20 +107,6 @@ static_assert(THREADS == 256, "tile shape and thread count disagree");
 static_assert(BM * BK == 4 * THREADS, "A tile: four loads per thread");
 static_assert(4 * BJ == THREADS, "B tile: one column per thread");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Keras hard_sigmoid clip(0.2 x + 0.5, 0, 1), or the logistic sigmoid.
 // Explicit _rn operations keep the compiler from contracting into an FMA,
 // so the rounding matches the plain version's separate multiply and add.
@@ -135,11 +126,11 @@ __device__ __forceinline__ void cell(float zi, float zf, float zc, float zo,
   h_new = __fmul_rn(gate(zo, hard), tanhf(c_new));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-convlstm_step_kernel(const T* __restrict__ zx, const T* __restrict__ rk,
-                     T* __restrict__ y, T* __restrict__ c, int B, int Tn,
-                     int H, int W, int F, int t, bool hard) {
+convlstm_step_kernel(const float* __restrict__ zx,
+                     const float* __restrict__ rk, float* __restrict__ y,
+                     float* __restrict__ c, int B, int Tn, int H, int W, int F,
+                     int t, bool hard) {
   __shared__ __align__(16) float As[BM][BK];       // h_{t-1}, pixel-major
   __shared__ __align__(16) float Bs[BK][4 * BJ];   // rk, gate-major columns
 
@@ -194,7 +185,7 @@ convlstm_step_kernel(const T* __restrict__ zx, const T* __restrict__ rk,
           if (a_ok[r] && k < F && sy >= 0 && sy < H && sx >= 0 && sx < W) {
             const size_t row =
                 ((size_t)a_b[r] * Tn + (t - 1)) * HW + (size_t)sy * W + sx;
-            v = to_f32(y[row * F + k]);
+            v = y[row * F + k];
           }
           As[a_m + 16 * r][a_k] = v;
         }
@@ -203,7 +194,7 @@ convlstm_step_kernel(const T* __restrict__ zx, const T* __restrict__ rk,
           const int kk = k0 + r;
           float v = 0.0f;
           if (b_ok && kk < F) {
-            v = to_f32(rk[((size_t)tap * F + kk) * F4 + (size_t)b_g * F + b_j]);
+            v = rk[((size_t)tap * F + kk) * F4 + (size_t)b_g * F + b_j];
           }
           Bs[r][tid] = v;
         }
@@ -260,17 +251,11 @@ convlstm_step_kernel(const T* __restrict__ zx, const T* __restrict__ rk,
     for (int q = 0; q < TJ; ++q) {
       const int j = j0 + tx * TJ + q;
       if (j >= F) continue;
-      const T* z = zx + step_row * F4 + j;
-      const float zi = to_f32(z[0]) + acc[i][0][q];
-      const float zf = to_f32(z[F]) + acc[i][1][q];
-      const float zc = to_f32(z[2 * (size_t)F]) + acc[i][2][q];
-      const float zo = to_f32(z[3 * (size_t)F]) + acc[i][3][q];
-      const float c_prev = t > 0 ? to_f32(c[c_row * F + j]) : 0.0f;
-      const float c_new = __fadd_rn(__fmul_rn(gate(zf, hard), c_prev),
-                                    __fmul_rn(gate(zi, hard), tanhf(zc)));
-      const float h_new = __fmul_rn(gate(zo, hard), tanhf(c_new));
-      c[c_row * F + j] = from_f32<T>(c_new);
-      y[step_row * F + j] = from_f32<T>(h_new);
+      const float* z = zx + step_row * F4 + j;
+      const float c_prev = t > 0 ? c[c_row * F + j] : 0.0f;
+      cell(z[0] + acc[i][0][q], z[F] + acc[i][1][q],
+           z[2 * (size_t)F] + acc[i][2][q], z[3 * (size_t)F] + acc[i][3][q],
+           c_prev, hard, c[c_row * F + j], y[step_row * F + j]);
     }
   }
 }
@@ -596,15 +581,17 @@ convlstm_step_tc(const __nv_bfloat16* __restrict__ zx,
             const int q = 2 * half + e;
             const __nv_bfloat16* z = zx + step_row[half] * F4 + j;
             const float c_prev =
-                t > 0 ? to_f32(c[c_row[half] * F + j]) : 0.0f;
+                t > 0 ? __bfloat162float(c[c_row[half] * F + j]) : 0.0f;
             float cn, hn;
-            cell(to_f32(z[0]) + acc[mi][0 * C::JT + jt][q],
-                 to_f32(z[F]) + acc[mi][1 * C::JT + jt][q],
-                 to_f32(z[2 * (size_t)F]) + acc[mi][2 * C::JT + jt][q],
-                 to_f32(z[3 * (size_t)F]) + acc[mi][3 * C::JT + jt][q],
+            cell(__bfloat162float(z[0]) + acc[mi][0 * C::JT + jt][q],
+                 __bfloat162float(z[F]) + acc[mi][1 * C::JT + jt][q],
+                 __bfloat162float(z[2 * (size_t)F]) +
+                     acc[mi][2 * C::JT + jt][q],
+                 __bfloat162float(z[3 * (size_t)F]) +
+                     acc[mi][3 * C::JT + jt][q],
                  c_prev, hard, cn, hn);
-            c[c_row[half] * F + j] = from_f32<__nv_bfloat16>(cn);
-            y[step_row[half] * F + j] = from_f32<__nv_bfloat16>(hn);
+            c[c_row[half] * F + j] = __float2bfloat16_rn(cn);
+            y[step_row[half] * F + j] = __float2bfloat16_rn(hn);
           }
         }
       }
@@ -617,11 +604,26 @@ int launch_f32(const void* zx, const void* rk, void* y, void* c, int B,
                void* stream) {
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BJ - 1) / BJ));
-  convlstm_step_kernel<float><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  convlstm_step_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(zx), static_cast<const float*>(rk),
       static_cast<float*>(y), static_cast<float*>(c), B, Tn, H, W, F, t,
       hard_sig != 0);
   return (int)cudaGetLastError();
+}
+
+// cudaFuncSetAttribute once per kernel and device: a host call that each
+// of a sequence's launches would otherwise pay.
+template <class C, bool VEC>
+cudaError_t opt_in() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(convlstm_step_tc<C, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 template <class C, bool VEC>
@@ -629,8 +631,7 @@ int launch_tc(const void* zx, const void* wpack, void* y, void* c, int B,
               int Tn, int H, int W, int F, int t, int hard_sig,
               void* stream) {
   auto kernel = convlstm_step_tc<C, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  cudaError_t err = opt_in<C, VEC>();
   if (err != cudaSuccess) return (int)err;
   const int M = B * H * W;
   const int Fp = (F + KC - 1) / KC * KC;
@@ -659,25 +660,26 @@ int launch_bf16(const void* zx, const void* wpack, void* y, void* c, int B,
 }  // namespace
 
 // One recurrence step t.  dtype: 0 = float32 (rk as (3, 3, F, 4F), CUDA
-// cores), 1 = bfloat16 (rk packed for the tile, tensor cores).  tile (bf16
-// only): 0 = large (BM 128, BJ 32), 1 = small (BM 64, BJ 16); the packed
-// slab must have been made with that tile's BJ.  Returns the
-// cudaGetLastError() code of the launch (0 on success); an unknown dtype or
-// tile, or more than 2^31 - 1 pixels, returns cudaErrorInvalidValue without
-// launching.
+// cores), 1 = bfloat16 (rk packed for a tile, tensor cores).  bm, bj, kc
+// (bf16 only) name the tile the caller chose and packed the slab for
+// (ops/convlstm.py: TILES, K_CHUNK): BM 144 x BJ 32 or BM 64 x BJ 16, KC
+// 32.  Returns the cudaGetLastError() code of the launch (0 on success); an
+// unknown dtype, a tile this file does not build or another KC, or more
+// than 2^31 - 1 pixels, returns cudaErrorInvalidValue without launching.
 extern "C" int windtpu_convlstm_step(int dtype, const void* zx, const void* rk,
                                      void* y, void* c, int B, int T, int H,
                                      int W, int F, int t, int hard_sig,
-                                     int tile, void* stream) {
+                                     int bm, int bj, int kc, void* stream) {
   if ((long long)B * H * W > 2147483647LL) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     return launch_f32(zx, rk, y, c, B, T, H, W, F, t, hard_sig, stream);
   }
-  if (dtype == 1 && tile == 0) {
+  if (dtype != 1 || kc != KC) return (int)cudaErrorInvalidValue;
+  if (bm == LargeTile::BM && bj == LargeTile::BJ) {
     return launch_bf16<LargeTile>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
                                   stream);
   }
-  if (dtype == 1 && tile == 1) {
+  if (bm == SmallTile::BM && bj == SmallTile::BJ) {
     return launch_bf16<SmallTile>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
                                   stream);
   }

@@ -3,30 +3,33 @@
 :func:`spatial_ks` is the port of the TPU kernel
 ``windtpu/ops/pallas_ks.py:spatial_ks_pallas``: ``real`` and ``fake``
 (B, T, H, W, C) in, the mean KS image (OH, OW) over all B*T*C field pairs
-out.  On CUDA tensors it launches ``csrc/spatial_ks.cu`` once; on CPU
-tensors it runs the plain version,
+out.  On CUDA tensors it launches ``csrc/spatial_ks.cu`` once, on the
+tensors as they are (f32 or bf16; other float types are cast to f32 first),
+and averages its per-pair images; on CPU tensors it runs the plain version,
 :func:`windtpu_torch.metrics.metrics.spatially_convolved_ks_stat`.  The
 kernel compares each value with the thresholds once, as the index of the
-first threshold it does not exceed.  There
-is no fallback from the kernel to the plain version, and no gradient: the
-metric is computed on detached tensors.
+first threshold it does not exceed.  There is no fallback from the kernel
+to the plain version, and no gradient: the metric is computed on detached
+tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from windtpu_torch.metrics.metrics import (
-    ks_fields,
     ks_thresholds,
     spatially_convolved_ks_stat,
 )
 from windtpu_torch.ops._build import bind
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def spatial_ks(real: torch.Tensor, fake: torch.Tensor,
@@ -61,16 +64,13 @@ def spatial_ks(real: torch.Tensor, fake: torch.Tensor,
     if real.device.type != "cuda":
         raise ValueError(f"spatial_ks runs on CUDA or CPU tensors; got "
                          f"{real.device}")
-    if lo > hi:
-        # The kernel finds each value's threshold index by a binary search,
-        # which needs ascending points.
-        raise ValueError(f"spatial_ks on the card needs lo <= hi; got "
-                         f"{lo} > {hi}")
-    fr = ks_fields(real).contiguous()
-    ff = ks_fields(fake).contiguous()
-    out = torch.empty((fr.shape[0], h - patch_size + 1, w - patch_size + 1),
+    real, fake = (x if x.dtype in _DTYPE_CODES else x.float()
+                  for x in (real, fake))
+    b, t, _, _, c = real.shape
+    out = torch.empty((b * t * c, h - patch_size + 1, w - patch_size + 1),
                       dtype=torch.float32, device=real.device)
-    launch_spatial_ks(fr, ff, ks_thresholds(num_points, lo, hi, real.device),
+    launch_spatial_ks(real.contiguous(), fake.contiguous(),
+                      ascending_thresholds(num_points, lo, hi, real.device),
                       out, patch_size)
     return torch.mean(out, dim=0)
 
@@ -78,18 +78,31 @@ def spatial_ks(real: torch.Tensor, fake: torch.Tensor,
 spatial_ks.launches = 0
 
 
-def launch_spatial_ks(fr: torch.Tensor, ff: torch.Tensor,
+@functools.lru_cache(maxsize=16)
+def ascending_thresholds(num_points: int, lo: float, hi: float,
+                         device: torch.device) -> torch.Tensor:
+    """The plain version's thresholds in ascending order, as the kernel's
+    binary search needs them; made once per (num_points, lo, hi, device).
+    For lo > hi that is the same set reversed, and the max over the set is
+    the same."""
+    points = ks_thresholds(num_points, lo, hi, device)
+    return points.flip(0) if lo > hi else points
+
+
+def launch_spatial_ks(real: torch.Tensor, fake: torch.Tensor,
                       points: torch.Tensor, out: torch.Tensor,
                       patch_size: int) -> None:
-    """One launch of the kernel on prepared CUDA tensors: the fields ``fr``
-    and ``ff`` (N, H, W) f32 contiguous, ascending f32 ``points`` and the
-    KS images ``out`` (N, H-patch+1, W-patch+1) f32.  Counted in
-    ``spatial_ks.launches``."""
+    """One launch of the kernel: ``real`` and ``fake`` (B, T, H, W, C)
+    contiguous CUDA tensors, each f32 or bf16; ascending f32 ``points``;
+    the per-pair KS images ``out`` (B*T*C, H-patch+1, W-patch+1) f32.
+    Counted in ``spatial_ks.launches``."""
     kernel = bind("spatial_ks", "windtpu_spatial_ks", _ARGTYPES)
-    n, h, w = fr.shape
-    with torch.cuda.device(fr.device):
-        err = kernel(fr.data_ptr(), ff.data_ptr(), points.data_ptr(),
-                     out.data_ptr(), n, h, w, patch_size, points.numel(),
+    b, t, h, w, c = real.shape
+    with torch.cuda.device(real.device):
+        err = kernel(real.data_ptr(), _DTYPE_CODES[real.dtype],
+                     fake.data_ptr(), _DTYPE_CODES[fake.dtype],
+                     points.data_ptr(), out.data_ptr(), b * t * c, c, h, w,
+                     patch_size, points.numel(),
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"spatial_ks kernel launch failed: CUDA error "
