@@ -15,10 +15,11 @@ Phases, each of which ends the script with a nonzero exit on failure:
    at the main paths' shapes and at a ragged shape, then time the kernel,
    the plain version and the nearest PyTorch call with CUDA events, beside
    the kernel's bound.  K1 (ConvLSTM): forward in bf16 (tensor cores, the
-   tile chosen per shape) and f32 (CUDA cores), the bf16 times at the
-   downscale and training shapes beside cuDNN's convs, and the gradients
-   through its autograd Function.  K2 (spatial KS): also on identical
-   fields, with NaNs and with values on the thresholds;
+   tile chosen per shape) and f32 (CUDA cores), the times at the shapes of
+   the downscale, training, ensemble (bf16) and train_main (f32) paths
+   beside cuDNN's convs, and the gradients through its autograd Function.
+   K2 (spatial KS): also on identical fields, with NaNs and with values on
+   the thresholds;
 4. reference: the flagship network in f32 with the bundled weights on a
    small domain, on the card (kernels) against the CPU (plain versions);
 5. downscale path: ``windtpu_torch.api.downscale`` of the flagship inference
@@ -34,7 +35,18 @@ Phases, each of which ends the script with a nonzero exit on failure:
    after a warm-up step; checks metrics, parameter movement, both kernels'
    launches per step and the checkpoint, prints seconds per step and peak
    memory, and profiles one more step;
-8. one JSON line with the kernels, then the result line.
+8. streaming path: ``api.downscale`` of the flagship domain through the
+   host-streaming engine, and ensembles of 4 members through both engines;
+   streamed against monolithic (f32 within the JAX package's tolerance,
+   bf16 within a stated limit), bf16 against f32 transfers, each member
+   against a one-member run with its seed; seconds, patches/s and kernel
+   launches of each run, the transfers' device times, streamed peak memory
+   at two domain sizes, and the monolithic engine's peak memory at three
+   domain sizes, which sets ``api._STREAMING_DEFAULT_BYTES``;
+9. train entry: ``cli.train_main`` with ``--synthetic`` at its default shape
+   (batch 16, 32 px, T=6, F=128) and the spatial KS on; seconds per step,
+   peak memory and both kernels' launches;
+10. one JSON line with the kernels, then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -64,6 +76,11 @@ PEAK_BYTES = 3.35e12
 # (B, T, H, W, F) of the generator's K1 on the downscale and training paths.
 MAIN_SHAPE = (16, 24, 24, 24, 128)
 TRAIN_SHAPE = (2, 24, 24, 24, 128)
+# ... on the 4-member ensemble path (one batched forward of 4 x 16 patches)
+# and in train_main (batch 16, T=6, 32 px; its ModelConfig computes in f32,
+# so K1 takes its f32 route there).
+ENSEMBLE_SHAPE = (64, 24, 24, 24, 128)
+TRAIN_MAIN_SHAPE = (16, 6, 8, 8, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
 NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
@@ -80,6 +97,32 @@ KS_TOL = 1e-6
 # f32 train steps on the card vs the CPU, relative to max(1, |value|).
 REFERENCE_TOL = 2e-3
 TRAIN_STEPS = 4
+# Streaming against the monolithic engine in f32: the JAX package's
+# tolerance (fp64 host statistics against f32 device ones).
+STREAM_ATOL, STREAM_RTOL = 2e-3, 1e-3
+# The same in bf16 through api.downscale, max and mean |difference| in
+# m/s: the statistics' last bits move a few inputs across a bf16 rounding
+# boundary, which moves outputs by a bf16 step (0.25 m/s between 32 and
+# 64 m/s); twice the largest gap measured on the H100 (0.25 and 9.1e-4).
+STREAM_BF16_TOL, STREAM_BF16_MEAN_TOL = 0.5, 2e-3
+# bf16 against f32 transfers on the streamed path, and member m of an
+# ensemble against the one-member run with its seed (one batched forward of
+# 64 patches against four of 16): exactly equal on the H100 with the bf16
+# network, which rounds its input to bf16 as the transfer does and whose
+# output is bf16, and whose per-patch arithmetic does not depend on the
+# batch.
+TRANSFER_BF16_TOL = MEMBER_TOL = 0.0
+MEMBERS = 4
+# The monolithic engine's peak memory is measured at these (H, W) domains
+# of 24 h (0.5, 3 and 12 GiB of _engine_hbm_bytes, the last at
+# api._STREAMING_DEFAULT_BYTES) to check the threshold against the card's
+# memory.
+THRESHOLD_DOMAINS = [(836, 836), (2048, 2048), (4096, 4096)]
+# The predicted peak at the default threshold must stay under this share of
+# the card's memory.
+THRESHOLD_SHARE = 0.5
+# train_main's default shape and the steps of its two timed runs.
+TRAIN_MAIN_STEPS = (2, 6)
 
 KERNELS = [{
     "name": "convlstm_seq",
@@ -153,13 +196,15 @@ def convlstm_inputs(shape, dtype, seed: int):
 
 
 def convlstm_bound(shape, itemsize: int):
-    """Least time of one sequence: the T-1 recurrent 3x3 convs on the tensor
-    cores (bf16 peak; h_{-1} = 0, so step 0 has none) vs zx read once, rk
-    read once, y written once."""
+    """Least time of one sequence: the T-1 recurrent 3x3 convs (h_{-1} = 0,
+    so step 0 has none) at the peak for their type (bf16 on the tensor
+    cores, f32 outside them) vs zx read once, rk read once, y written
+    once."""
     b, t, h, w, f = shape
     flops = 2.0 * b * (t - 1) * h * w * 9 * f * 4 * f
     nbytes = itemsize * (b * t * h * w * 5 * f + 9 * f * 4 * f)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_OPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
@@ -178,6 +223,8 @@ def convlstm_kernel_phase() -> dict:
     cases = [(MAIN_SHAPE, torch.bfloat16, True),
              (MAIN_SHAPE, torch.float32, True),
              (TRAIN_SHAPE, torch.bfloat16, True),
+             (ENSEMBLE_SHAPE, torch.bfloat16, True),
+             (TRAIN_MAIN_SHAPE, torch.float32, True),
              (RAGGED_SHAPE, torch.bfloat16, True),
              (RAGGED_SHAPE, torch.float32, False),
              (NARROW_SHAPE, torch.bfloat16, True)]
@@ -199,21 +246,22 @@ def convlstm_kernel_phase() -> dict:
             main_err = err
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE, RAGGED_SHAPE, NARROW_SHAPE):
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE, ENSEMBLE_SHAPE, TRAIN_MAIN_SHAPE,
+                  RAGGED_SHAPE, NARROW_SHAPE):
         b, t, h, w, f = shape
         bm, bj = TILES[choose_tile(b * h * w, f, sms)]
         blocks = -(-b * h * w // bm) * -(-f // bj)
         print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj} "
               f"({blocks} blocks per step on {sms} SMs)")
 
-    def library_convs(shape, rk):
+    def library_convs(shape, rk, dtype):
         # Library yardstick, conv part only: the T-1 recurrent 3x3 convs as
-        # cuDNN calls on channels-last bf16 (no single PyTorch call
-        # computes the whole recurrence).
+        # cuDNN calls on channels-last tensors of the kernel's dtype (no
+        # single PyTorch call computes the whole recurrence).
         b, t, h, w, f = shape
-        hx = torch.randn(b, f, h, w, device="cuda", dtype=torch.bfloat16
+        hx = torch.randn(b, f, h, w, device="cuda", dtype=dtype
                          ).contiguous(memory_format=torch.channels_last)
-        wk = rk.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+        wk = rk.to(dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
 
         def library():
@@ -224,14 +272,19 @@ def convlstm_kernel_phase() -> dict:
     # One card, one call: the bf16 kernel, the f32 CUDA-core kernel (main
     # shape only), the plain version (main shape only) and cuDNN, in turns.
     stats = {}
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
-        zx, rk = convlstm_inputs(shape, torch.bfloat16, seed=0)
-        library = library_convs(shape, rk)
-        bound_ms, bound_by, flops, nbytes = convlstm_bound(shape, 2)
+    for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
+                         (TRAIN_SHAPE, torch.bfloat16),
+                         (ENSEMBLE_SHAPE, torch.bfloat16),
+                         (TRAIN_MAIN_SHAPE, torch.float32)):
+        zx, rk = convlstm_inputs(shape, dtype, seed=0)
+        library = library_convs(shape, rk, dtype)
+        bound_ms, bound_by, flops, nbytes = convlstm_bound(
+            shape, zx.element_size())
         ms = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
         library_ms = cuda_ms(library, iters=20)
         ms_again = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
-        line = (f"convlstm_seq {shape} bf16, one sequence ({shape[1]} "
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        line = (f"convlstm_seq {shape} {name}, one sequence ({shape[1]} "
                 f"launches): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                 f"TFLOP/s; again {ms_again:.4f} ms), library (cuDNN conv "
                 f"part only) {library_ms:.4f} ms "
@@ -251,7 +304,12 @@ def convlstm_kernel_phase() -> dict:
                      "bound_by": bound_by, "library_ms": library_ms,
                      "f32_ms": f32_ms}
         else:
-            stats.update(train_library_ms=library_ms)
+            key = {TRAIN_SHAPE: "train", ENSEMBLE_SHAPE: "ensemble",
+                   TRAIN_MAIN_SHAPE: "train_main"}[shape]
+            stats.update({f"{key}_library_ms": library_ms,
+                          f"{key}_bound_ms": bound_ms})
+            if shape != TRAIN_SHAPE:   # the gradient phase times that one
+                stats[f"{key}_ms"] = ms
         print(line)
     stats.update(convlstm_gradient_phase())
     return stats
@@ -748,6 +806,317 @@ def training_path_phase() -> dict:
     return counts
 
 
+def merged_field(era5, raster):
+    """The (T, H, W, 3) field that ``api.predict`` tiles, on the host."""
+    from windtpu_torch.infer.template import (
+        build_high_res_template_from_era5,
+        process_era5,
+        process_topo,
+    )
+
+    template = build_high_res_template_from_era5(era5)
+    inputs = process_era5(era5, template)
+    elev = np.asarray(process_topo(raster, template)["elevation"].values,
+                      np.float32) / 1e3
+    u10 = np.asarray(inputs["u10"].values, np.float32)
+    v10 = np.asarray(inputs["v10"].values, np.float32)
+    return np.stack([u10, v10, np.broadcast_to(elev, u10.shape)], axis=-1)
+
+
+def compare(name: str, got, want, atol: float, rtol: float = 0.0,
+            mean_tol: float = None) -> float:
+    """Fail unless ``got`` and ``want`` have the same NaN cells and agree
+    within atol + rtol |want| (and, with ``mean_tol``, on average within
+    it); returns the max abs difference."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape:
+        fail(f"{name}: shape {got.shape} != {want.shape}")
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        fail(f"{name}: the NaN cells differ")
+    m = ~np.isnan(want)
+    diff = np.abs(got[m] - want[m])
+    err = float(diff.max())
+    excess = float(np.max(diff - rtol * np.abs(want[m])))
+    mean = float(diff.mean())
+    ok = (m.any() and np.isfinite(got[m]).all() and excess <= atol
+          and (mean_tol is None or mean <= mean_tol))
+    limit = "" if mean_tol is None else f", mean tol {mean_tol:.1e}"
+    print(f"{name}: max_abs_err {err:.3e}, mean {mean:.3e} (tol {atol:.1e} "
+          f"+ {rtol:.0e} x |value|{limit}, output scale "
+          f"{float(np.abs(want[m]).max()):.2f}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name} disagree")
+    return err
+
+
+def timed(fn):
+    """(result, seconds, K1 launches) of one call, ending in a sync."""
+    import torch
+
+    from windtpu_torch.ops.convlstm import convlstm_seq
+
+    torch.cuda.synchronize()
+    convlstm_seq.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, convlstm_seq.launches
+
+
+def streaming_path_phase() -> dict:
+    import torch
+
+    from windtpu_torch import api
+    from windtpu_torch.core.config import InferenceConfig
+    from windtpu_torch.infer import engine, streaming
+    from windtpu_torch.network import WindDownscalingGAN
+
+    era5, raster = era5_and_dem(21, 42, 24, seed=0)
+    patches, groups, seq = 63, 4, 24
+    network = api.get_network()
+    kw = dict(network=network, seed=0)
+    mono = api.downscale(era5, raster, streaming=False, **kw)  # warm-up
+    # Host time by function of one streamed call (also its warm-up).
+    profile_host(lambda: api.downscale(era5, raster, streaming=True, **kw))
+
+    # The paths, through the entry point; each counted on its own.  The
+    # ensembles run without the texture gate: on the streamed path it is
+    # the host's numpy FFTs, once per member, and the single-member runs
+    # already hold it against the device's.
+    counts = {}
+    runs = {}
+    for path, name, extra in [
+            ("streaming", "streamed", dict(streaming=True)),
+            ("ensemble", f"monolithic, {MEMBERS} members",
+             dict(streaming=False, ensemble_members=MEMBERS,
+                  texture_gate=False)),
+            ("ensemble", f"streamed, {MEMBERS} members",
+             dict(streaming=True, ensemble_members=MEMBERS,
+                  texture_gate=False))]:
+        res, seconds, k1 = timed(lambda: api.downscale(era5, raster, **kw,
+                                                        **extra))
+        mode = api.last_run_info()["mode"]
+        want_mode = ("streaming" if extra["streaming"] else "ensemble")
+        members = extra.get("ensemble_members", 1)
+        if mode != want_mode or k1 != groups * seq:
+            fail(f"downscale ({name}) ran {mode!r} with {k1} convlstm_seq "
+                 f"launches; expected {want_mode!r} and {groups * seq}")
+        u = res["u10"].values
+        want_shape = ((members,) if members > 1 else ()) + (24, 542, 752)
+        if u.shape != want_shape or not np.isfinite(u).all():
+            fail(f"downscale ({name}): u10 {u.shape}, finite "
+                 f"{np.isfinite(u).all()}")
+        counts[path] = counts.get(path, 0) + k1
+        runs[name] = res
+        print(f"downscale {name} (24 h x 546 x 756, {patches} patches x "
+              f"{members}): {seconds:.3f} s, {members * patches / seconds:.1f}"
+              f" patches/s, convlstm_seq launches {k1}")
+    for var in ("u10", "v10"):
+        compare(f"bf16 downscale {var}, streamed vs monolithic",
+                runs["streamed"][var].values, mono[var].values,
+                STREAM_BF16_TOL, mean_tol=STREAM_BF16_MEAN_TOL)
+        compare(f"bf16 downscale {var}, {MEMBERS} members streamed vs "
+                f"monolithic",
+                runs[f"streamed, {MEMBERS} members"][var].values,
+                runs[f"monolithic, {MEMBERS} members"][var].values,
+                STREAM_BF16_TOL, mean_tol=STREAM_BF16_MEAN_TOL)
+    ens = runs[f"monolithic, {MEMBERS} members"]["u10"].values
+    spread = float(np.min([np.abs(ens[m] - ens[0]).mean()
+                           for m in range(1, MEMBERS)]))
+    print(f"members differ: least mean |u10 member m - member 0| "
+          f"{spread:.4f} m/s")
+    if not spread > 1e-3:
+        fail("the ensemble's members do not differ")
+
+    # Engine level, from the same merged field.
+    field = merged_field(era5, raster)
+    mcfg = network.cfg.model
+    icfg = InferenceConfig(sequence_length=24, image_size=96,
+                           noise_channels=mcfg.noise_channels)
+    cfg32 = dataclasses.replace(network.cfg, model=dataclasses.replace(
+        mcfg, compute_dtype="float32"))
+    net32 = WindDownscalingGAN(cfg32).load_weights(api.BUNDLED_GENERATOR)
+    f32_mono, _ = engine.downscale_field(net32.generator, field,
+                                         cfg32.model, icfg, generator=3)
+    f32_stream, _ = streaming.downscale_field_streaming(
+        net32.generator, field, cfg32.model, icfg, generator=3)
+    compare("f32 engine, streamed vs monolithic", f32_stream,
+            f32_mono.cpu().numpy(), STREAM_ATOL, STREAM_RTOL)
+    del net32, f32_mono
+    bf16_icfg = dataclasses.replace(icfg,
+                                    streaming_transfer_dtype="bfloat16")
+    by_transfer = {}
+    for name, cfg in (("f32", icfg), ("bf16", bf16_icfg)):
+        print(f"streamed engine, {name} transfers:")
+        by_transfer[name] = profile_transfers(
+            lambda: streaming.downscale_field_streaming(
+                network.generator, field, mcfg, cfg, generator=5)[0])
+    compare("bf16 engine, bf16 vs f32 transfers", by_transfer["bf16"],
+            by_transfer["f32"], TRANSFER_BF16_TOL)
+    seeds = api.member_seeds(7, MEMBERS)
+    fused, _ = engine.downscale_field(network.generator, field, mcfg, icfg,
+                                      ensemble_generators=seeds)
+    for m, s in enumerate(seeds):
+        single, _ = engine.downscale_field(network.generator, field, mcfg,
+                                           icfg, generator=s)
+        compare(f"bf16 engine, member {m} vs its one-member run",
+                fused[m].cpu().numpy(), single.cpu().numpy(), MEMBER_TOL)
+    del fused, single
+
+    # Streamed peak memory at a part of the flagship domain (16 patches) and
+    # at the whole (63, about 4x).
+    peaks = []
+    for f in (field[:, :330, :378], field):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (_, plan), seconds, k1 = timed(
+            lambda: streaming.downscale_field_streaming(
+                network.generator, f, mcfg, icfg, generator=0))
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        print(f"streamed engine {f.shape[1]} x {f.shape[2]} "
+              f"({plan.num_patches} patches): {seconds:.3f} s, "
+              f"{plan.num_patches / seconds:.1f} patches/s, convlstm_seq "
+              f"launches {k1}, peak device memory above the weights "
+              f"{peaks[-1] / 2**20:.1f} MiB")
+    if peaks[1] > peaks[0] + (16 << 20):
+        fail(f"streamed peak memory grows with the domain: "
+             f"{peaks[0] / 2**20:.1f} -> {peaks[1] / 2**20:.1f} MiB")
+    threshold_measurements(network, icfg)
+    return counts
+
+
+def threshold_measurements(network, icfg) -> None:
+    """Peak device memory of the monolithic engine plus the device texture
+    gate at THRESHOLD_DOMAINS against ``api._engine_hbm_bytes``; fails if
+    the linear fit puts the default threshold's peak above THRESHOLD_SHARE
+    of the card's memory."""
+    import torch
+
+    from windtpu_torch import api
+    from windtpu_torch.infer.engine import make_tiled_predictor
+    from windtpu_torch.infer.tiling import plan_tiling
+    from windtpu_torch.models.texture_gate import apply_gate_targeted
+
+    gate = network.texture_gate
+    target = torch.full((2,), 0.5, device="cuda")
+    floor = torch.as_tensor(np.asarray(gate["floor"], np.float32),
+                            device="cuda")
+    mcfg = network.cfg.model
+    points = []
+    for h, w in THRESHOLD_DOMAINS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        field = torch.randn((24, h, w, 3), generator=gen, device="cuda")
+        plan = plan_tiling(h, w, 24, 96, 24, icfg.overlap_factor)
+        pred, _ = make_tiled_predictor(mcfg, icfg, plan, network.generator,
+                                       "cuda")(field, gen)
+        pred = apply_gate_targeted(target, floor,
+                                   api._trim_canvas(pred, plan, icfg))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        est = api._engine_hbm_bytes(24, h, w, 3, 2)
+        if not bool(torch.isfinite(pred).all()):
+            fail(f"monolithic engine at {h} x {w}: output not finite")
+        del field, pred
+        points.append((est, peak))
+        print(f"monolithic engine + gate, 24 x {h} x {w} ({plan.num_patches}"
+              f" patches): {seconds:.2f} s, peak device memory above the "
+              f"weights {peak / 2**30:.3f} GiB, _engine_hbm_bytes "
+              f"{est / 2**30:.3f} GiB, ratio {peak / est:.3f}")
+    torch.cuda.empty_cache()
+    est, peak = (np.array(v, np.float64) for v in zip(*points))
+    slope, intercept = np.polyfit(est, peak, 1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    default = api._STREAMING_DEFAULT_BYTES
+    at_default = slope * default + intercept
+    at_card = (total - intercept) / slope
+    print(f"fit: peak = {slope:.3f} x _engine_hbm_bytes + "
+          f"{intercept / 2**30:.3f} GiB; at the default threshold "
+          f"{default / 2**30:.2f} GiB: {at_default / 2**30:.2f} GiB of "
+          f"{total / 2**30:.2f} GiB ({100 * at_default / total:.1f}%); the "
+          f"card's memory is reached at {at_card / 2**30:.2f} GiB")
+    if at_default > THRESHOLD_SHARE * total:
+        fail(f"the default streaming threshold would peak above "
+             f"{THRESHOLD_SHARE:.0%} of the card's memory")
+
+
+def profile_transfers(fn):
+    """Device milliseconds of the host-to-device and device-to-host copies
+    of one call of ``fn`` (torch.profiler), beside its wall time; returns
+    what ``fn`` returns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    if not rows:
+        print("transfer profile: no device time recorded (not measured)")
+        return out
+    busy = sum(e.device_time_total for e in rows) / 1e3
+    print(f"transfer profile: wall {wall * 1e3:.1f} ms, device {busy:.1f} "
+          f"ms ({100 * busy / (wall * 1e3):.1f}% busy)")
+    for e in rows:
+        if "Memcpy" in e.key:
+            print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key}")
+    return out
+
+
+def train_entry_phase() -> dict:
+    import torch
+
+    from windtpu_torch import cli
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.ops.ks import spatial_ks
+
+    ckpt_root = ROOT / "build" / "chip_smoke_train_main"
+
+    def run(steps: int):
+        directory = ckpt_root / str(steps)
+        shutil.rmtree(directory, ignore_errors=True)
+        return cli.train_main([
+            "--inputs", "unused", "--outputs", "unused", "--synthetic",
+            "--checkpoint-dir", str(directory), "--steps", str(steps),
+            "--spatial-ks"])
+
+    run(1)                                               # warm-up
+    walls = {}
+    for steps in TRAIN_MAIN_STEPS:
+        convlstm_seq.launches = spatial_ks.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        state, walls[steps], k1 = timed(lambda: run(steps))
+        k2 = spatial_ks.launches
+        if state.step != steps:
+            fail(f"train_main stopped at step {state.step} of {steps}")
+        seq = state.generator.config.sequence_length
+        if k1 != 5 * seq * steps or k2 != steps:
+            fail(f"train_main, {steps} steps: convlstm_seq launched {k1} "
+                 f"times (expected 5 generator forwards x {seq} x {steps}) "
+                 f"and spatial_ks {k2} (expected {steps})")
+        print(f"train_main --synthetic, batch 16 x T=6 x 32 px, F=128, "
+              f"{steps} steps: {walls[steps]:.3f} s, convlstm_seq launches "
+              f"{k1}, spatial_ks launches {k2}, peak memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    a, b = TRAIN_MAIN_STEPS
+    print(f"train_main: {(walls[b] - walls[a]) / (b - a):.4f} s per step "
+          f"(the difference of the two runs over {b - a} steps)")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return {"convlstm_seq": k1, "spatial_ks": k2}
+
+
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -806,6 +1175,8 @@ PHASES = {
     "downscale path": downscale_path_phase,
     "training reference": training_reference_phase,
     "training path": training_path_phase,
+    "streaming path": streaming_path_phase,
+    "train entry": train_entry_phase,
 }
 
 
@@ -845,18 +1216,24 @@ def main() -> int:
 
     stats = {"convlstm_seq": results["kernel convlstm_seq"],
              "spatial_ks": results["kernel spatial_ks"]}
+    streamed = results["streaming path"]
     paths = {"downscale": results["downscale path"],
-             "train": results["training path"]}
+             "train": results["training path"],
+             "streaming": {"convlstm_seq": streamed["streaming"]},
+             "ensemble": {"convlstm_seq": streamed["ensemble"]},
+             "train_main": results["train entry"]}
     kernels = []
     for k in KERNELS:
         by_path = {path: counts.get(k["name"], 0)
                    for path, counts in paths.items()}
-        if by_path["train"] == 0:
-            fail(f"{k['name']} was not launched on the training path")
+        for path in ("train", "train_main"):
+            if by_path[path] == 0:
+                fail(f"{k['name']} was not launched on the {path} path")
         kernels.append({**k, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **stats[k["name"]]})
-    if paths["downscale"]["convlstm_seq"] == 0:
-        fail("convlstm_seq was not launched on the downscale path")
+    for path in ("downscale", "streaming", "ensemble"):
+        if paths[path]["convlstm_seq"] == 0:
+            fail(f"convlstm_seq was not launched on the {path} path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

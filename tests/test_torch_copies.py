@@ -1,10 +1,13 @@
 """The port's copies of the JAX package's pure-numpy modules stay equal to
 their originals: tiling (bit for bit), the high-res template and regridding,
 the NetCDF / GeoTIFF I/O (files written by one side read by the other),
-and the numpy metric oracles."""
+the numpy metric oracles, the streaming engine's host helpers and the data
+providers (decoders and the batch pipeline: tests/test_torch_data.py)."""
 
 import dataclasses
 import itertools
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,11 +16,16 @@ from windtpu.infer import template as jtemplate
 from windtpu.infer import tiling as jtiling
 from windtpu.io import dataset as jds
 from windtpu.io import geotiff as jgeo
+from windtpu.data import providers as jproviders
+from windtpu.infer import streaming as jstreaming
 from windtpu.metrics import oracles as joracles
 from windtpu_torch.infer import template as ttemplate
 from windtpu_torch.infer import tiling as ttiling
 from windtpu_torch.io import dataset as tds
 from windtpu_torch.io import geotiff as tgeo
+from windtpu_torch.data import providers as tproviders
+from windtpu_torch.infer import engine as tengine
+from windtpu_torch.infer import streaming as tstreaming
 from windtpu_torch.metrics import oracles as toracles
 
 
@@ -132,3 +140,92 @@ def test_metric_oracles_equal(name):
         args, kw = (real, fake), {}
     np.testing.assert_array_equal(getattr(toracles, name)(*args, **kw),
                                   getattr(joracles, name)(*args, **kw))
+
+
+def test_host_copies_equal_their_originals():
+    """_clamped_start, _host_patch and _host_stats are copies of the JAX
+    package's numpy helpers."""
+    rng = np.random.RandomState(2)
+    field = rng.standard_normal((7, 41, 53, 3)).astype(np.float32)
+    field[1, 4:9, 2:6, 1] = np.nan
+    for start, size, dim in [(-3, 4, 10), (0, 4, 10), (8, 4, 10),
+                             (17, 32, 48)]:
+        assert tstreaming._clamped_start(start, size, dim) == \
+            jstreaming._clamped_start(start, size, dim)
+    for origin in [(0, 0, 0), (21, 9, 1), (30, 20, 1)]:
+        np.testing.assert_array_equal(
+            tstreaming._host_patch(field, origin, 4, 32),
+            jstreaming._host_patch(field, origin, 4, 32))
+    plan = ttiling.TilingPlan(image_size=32, sequence_length=4,
+                              pixels_lat=41, pixels_lon=53, time_window=7,
+                              starts_x=(0, 21), starts_y=(0, 9),
+                              num_time_chunks=2)
+    origins, weights = tengine._grouped_origins(plan, 3)
+    for quirk in (True, False):
+        got = tstreaming._host_stats(field, origins, weights, 4, 32, quirk)
+        want = jstreaming._host_stats(field, origins, weights, 4, 32, quirk)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_provider_patterns_and_dates_equal(tmp_path):
+    for pattern in ("x_{date}.nc", "{date:d}_era5.nc", "d/{date}_{x}.nc"):
+        for name in ("x_20200101.nc", "20200101_era5.nc", "d/0101_a.nc",
+                     "y_20200101.nc"):
+            j = jproviders._pattern_to_regex(pattern).match(name)
+            t = tproviders._pattern_to_regex(pattern).match(name)
+            assert (t and t.group("date")) == (j and j.group("date"))
+    assert tproviders._substitute_date("x_{date}.nc", "0101") == \
+        jproviders._substitute_date("x_{date}.nc", "0101") == "x_0101.nc"
+    with pytest.raises(ValueError):
+        tproviders._substitute_date("x_{date}.nc", "..")
+    for d in ("20200101", "0102"):
+        (tmp_path / f"x_{d}.nc").touch()
+    (tmp_path / "notes.txt").touch()
+    got = tproviders.LocalFileProvider(tmp_path, "x_{date}.nc")
+    want = jproviders.LocalFileProvider(tmp_path, "x_{date}.nc")
+    assert got.available_dates == want.available_dates == {"20200101",
+                                                           "0102"}
+    assert got.load("0102") == want.load("0102")
+    with pytest.raises(ValueError):
+        tproviders.LocalFileProvider(tmp_path, "static.nc")
+
+
+@pytest.mark.parametrize("store", ["GCSFileProvider", "S3FileProvider"])
+def test_object_store_providers_on_a_mocked_transport(tmp_path, monkeypatch,
+                                                      store):
+    """Both packages' object-store providers against a fake ``gsutil`` /
+    ``s3cmd`` on PATH that serves a directory tree as the bucket."""
+    scheme = "gs" if store.startswith("GCS") else "s3"
+    bucket = tmp_path / "bucket" / "days"
+    bucket.mkdir(parents=True)
+    for d in ("20200101", "20200102"):
+        (bucket / f"x_{d}.nc").write_text(d)
+    (bucket / "README").touch()
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    for tool, ls, fetch in (("gsutil", "ls", "cp"), ("s3cmd", "ls", "get")):
+        fake = bin_dir / tool
+        fake.write_text(f"""#!/bin/sh
+root={tmp_path}
+cmd=$1; shift
+case "$cmd" in
+  {ls}) for f in "$root/${{1#{scheme}://}}"*; do echo "{scheme}://${{f#$root/}}"; done ;;
+  {fetch}) src="$root/${{1#{scheme}://}}"; cp "$src" "$2" ;;
+  *) exit 64 ;;
+esac
+""")
+        fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}:{os.environ['PATH']}")
+    for mod in (jproviders, tproviders):
+        p = getattr(mod, store)(f"{scheme}://bucket", "days",
+                                pattern="x_{date}.nc")
+        assert p.available_dates == {"20200101", "20200102"}
+        with p.provide("20200101") as path:
+            got = Path(path)
+            assert got.read_text() == "20200101"
+        assert not got.exists() and not got.parent.exists()
+    monkeypatch.setenv("PATH", str(tmp_path))     # no tool at all
+    with pytest.raises(RuntimeError, match="not runnable"):
+        getattr(tproviders, store)("bucket", pattern="x_{date}.nc"
+                                   ).available_dates

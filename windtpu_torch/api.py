@@ -2,11 +2,12 @@
 
 Counterpart of ``windtpu/api.py``: ``downscale`` / ``predict`` /
 ``get_network`` on :mod:`windtpu_torch.io` datasets, running the
-single-device tiled engine (:mod:`windtpu_torch.infer.engine`) and the
-texture gate on the card.  Every entry point takes ``device=None``, which
-means ``"cuda"`` and raises when no card is present; pass ``device="cpu"``
-to run on the CPU.  Streaming and ensembles are later slices of the port
-(ROADMAP.md, queue A item 6).
+single-device tiled engine (:mod:`windtpu_torch.infer.engine`), or the
+host-streaming engine (:mod:`windtpu_torch.infer.streaming`) for domains
+too large for it, and the texture gate.  Ensembles run their members as
+one batched forward per patch group.  Every entry point takes
+``device=None``, which means ``"cuda"`` and raises when no card is
+present; pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from windtpu_torch.core.config import (GANConfig, InferenceConfig,
                                        ModelConfig, TrainConfig)
 from windtpu_torch.core.device import resolve_device
-from windtpu_torch.infer.engine import make_tiled_predictor
+from windtpu_torch.infer.engine import downscale_field
 from windtpu_torch.infer.template import (
     build_high_res_template_from_era5,
     process_era5,
@@ -44,9 +45,6 @@ WEIGHTS_ENV = "WINDTPU_WEIGHTS"
 ASSETS = Path(__file__).resolve().parents[1] / "windtpu" / "assets" / "weights"
 BUNDLED_GENERATOR = ASSETS / "generator-synth.npz"
 BUNDLED_GATE = ASSETS / "texture-gate.npz"
-
-_LATER_SLICE = "ROADMAP.md queue A item 6 (streaming + ensembles)"
-
 
 def flagship_config() -> GANConfig:
     """Shipped-model configuration, bfloat16 compute (parameters stay
@@ -84,6 +82,54 @@ def get_network(weights_path: Optional[str] = None, device=None):
     return gan
 
 
+# Diagnostics of the most recent predict(): which engine ran ("single",
+# "ensemble" or "streaming") and whether the texture gate was applied.
+_LAST_RUN = {}
+
+
+def last_run_info() -> dict:
+    """Diagnostics of the most recent :func:`predict`."""
+    return dict(_LAST_RUN)
+
+
+def _engine_hbm_bytes(t: int, h: int, w: int, in_ch: int,
+                      out_ch: int, members_per_device: int = 1) -> int:
+    """The monolithic engine's resident domain tensors, the JAX package's
+    formula: field + (canvas + one canvas-sized buffer) per member +
+    coverage map, all f32.  The port runs on one device, so the member
+    count is the whole ensemble."""
+    px = t * h * w
+    return 4 * (px * in_ch + members_per_device * 2 * px * out_ch + px)
+
+
+# Streaming kicks in when _engine_hbm_bytes exceeds this many bytes.
+# Measured by chip_smoke.py's streaming path on an NVIDIA H100 80GB HBM3
+# at 700.00 W: the monolithic engine plus the device texture gate peaked
+# at 2.29, 9.15 and 30.52 GiB above the weights for estimates of 0.5, 3
+# and 12 GiB (24 h square domains), 2.54x the estimate at 12 GiB; the fit
+# 2.43 x estimate + 1.4 GiB reaches the card's 79.2 GiB at about 32 GiB.
+# The default is the largest measured fit, 12 GiB: under 40% of the card,
+# which leaves room for an ensemble's larger generator batch (the estimate
+# scales only the canvases with the members).  chip_smoke.py measures it
+# again on every run.  Override with WINDTPU_STREAMING_BYTES.
+_STREAMING_DEFAULT_BYTES = 12 << 30
+
+
+def _streaming_threshold() -> int:
+    return int(os.environ.get("WINDTPU_STREAMING_BYTES",
+                              _STREAMING_DEFAULT_BYTES))
+
+
+def member_seeds(seed: int, members: int):
+    """The seeds of an ensemble's members: ``numpy.random.SeedSequence(
+    seed).generate_state(members, uint64)``, each masked to 63 bits.
+    Member ``m`` of ``predict(seed=s, ensemble_members=M)`` equals
+    ``predict(seed=member_seeds(s, M)[m])``, up to the batched forward's
+    summation order."""
+    state = np.random.SeedSequence(seed).generate_state(members, np.uint64)
+    return [int(v) & ((1 << 63) - 1) for v in state]
+
+
 def predict(
     inputs_era5: Dataset,
     inputs_topo: Dataset,
@@ -99,22 +145,27 @@ def predict(
 ) -> Dataset:
     """Tile the merged (u10, v10, elevation) field into patch cubes, run the
     generator with fresh noise, stitch with an overlap mean and apply the
-    texture gate, all on ``device``.
+    texture gate.
 
     ``seed`` seeds the ``torch.Generator`` the noise is drawn from, one
-    draw per patch group in group order.  ``noise_std`` overrides the
-    shipped 0.1; 0.0 makes the result deterministic.  ``streaming``:
-    "auto" and False run the on-device engine; True raises
-    (not yet ported).  ``texture_gate``: "auto"/True use the network's
+    draw per patch group in group order.  With ``ensemble_members`` = M > 1
+    the output gains a ``member`` axis and member ``m`` draws from the
+    seed ``member_seeds(seed, M)[m]``.  The JAX package splits its key
+    with ``jax.random.split``, which torch cannot reproduce: members match
+    across the two packages only at ``noise_std=0``.  ``noise_std``
+    overrides the shipped 0.1; 0.0 makes the result deterministic.
+
+    ``streaming``: "auto" runs the host-streaming engine
+    (:mod:`windtpu_torch.infer.streaming`: field and canvases in host
+    memory, one or two patch groups on the device) when the monolithic
+    engine's resident tensors (``_engine_hbm_bytes``, scaled by the member
+    count) exceed ``_streaming_threshold()``; True forces it, False
+    forbids it.  ``texture_gate``: "auto"/True use the network's
     calibration, False disables the gate, a dict or ``.npz`` path
-    overrides it."""
+    overrides it; it runs where the stitched canvas lives (on the device
+    for the monolithic engine, in host memory for streaming).
+    ``last_run_info()`` reports which engine ran."""
     dev = resolve_device(device)
-    if streaming is True:
-        raise NotImplementedError(
-            f"streaming inference is not ported yet: {_LATER_SLICE}")
-    if ensemble_members > 1:
-        raise NotImplementedError(
-            f"ensemble inference is not ported yet: {_LATER_SLICE}")
     network = network if network is not None else get_network(device=dev)
     if network.device != dev:
         raise ValueError(f"the network lives on {network.device}, but "
@@ -159,34 +210,67 @@ def predict(
     plan = plan_tiling(h, w, t_total, icfg.image_size, icfg.sequence_length,
                        overlap_factor)
     print(f"Applying model to {plan.num_patches} patches")
-    predictor = make_tiled_predictor(mcfg, icfg, plan, network.generator,
-                                     dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    pred, _ = predictor(torch.as_tensor(field, device=dev), gen)
-    pred = _trim_canvas(pred, plan, icfg)
-    if gate_params is not None:
-        from windtpu_torch.models.texture_gate import apply_gate_targeted
+    member_axis = ensemble_members > 1
+    seeds = member_seeds(seed, ensemble_members) if member_axis else [seed]
+    if streaming == "auto":
+        streaming = (_engine_hbm_bytes(t_total, h, w, mcfg.in_channels,
+                                       mcfg.out_channels,
+                                       members_per_device=ensemble_members)
+                     > _streaming_threshold())
+        if streaming:
+            print("# domain exceeds the on-device engine's memory budget; "
+                  "using the host-streaming engine")
+    members = (dict(ensemble_generators=seeds) if member_axis
+               else dict(generator=seed))
+    if streaming:
+        from windtpu_torch.infer.streaming import downscale_field_streaming
 
-        pred = apply_gate_targeted(torch.as_tensor(gate_target, device=dev),
-                                   torch.as_tensor(gate_floor, device=dev),
-                                   pred)
-    pred = pred.cpu().numpy()
-    return _assemble_output(pred, plan, icfg, time_vals, lat, lon)
+        pred, _ = downscale_field_streaming(
+            network.generator, field, mcfg, icfg, plan=plan, device=dev,
+            **members)
+        pred = _trim_canvas(pred, plan, icfg)
+        if gate_params is not None:
+            from windtpu_torch.models.texture_gate import \
+                apply_gate_targeted_np
+
+            # The streamed canvas lives in host memory because it does not
+            # fit on the device: gate it there, frame at a time.
+            pred = apply_gate_targeted_np(gate_target, gate_floor, pred)
+        mode = "streaming"
+    else:
+        pred, _ = downscale_field(network.generator, field, mcfg, icfg,
+                                  plan=plan, device=dev, **members)
+        pred = _trim_canvas(pred, plan, icfg)
+        if gate_params is not None:
+            from windtpu_torch.models.texture_gate import apply_gate_targeted
+
+            pred = apply_gate_targeted(
+                torch.as_tensor(gate_target, device=dev),
+                torch.as_tensor(gate_floor, device=dev), pred)
+        pred = pred.cpu().numpy()
+        mode = "ensemble" if member_axis else "single"
+    _LAST_RUN.clear()
+    _LAST_RUN.update(mode=mode, texture_gate=gate_params is not None)
+    return _assemble_output(pred, member_axis, plan, icfg, time_vals, lat,
+                            lon, ensemble_members)
 
 
 def _trim_canvas(pred, plan, icfg):
-    """Slice the stitched canvas to the covered time window and drop the
-    border-cropped rim, so the gate runs on a field without NaN frames."""
+    """Slice the stitched canvas (..., T, H, W, C) to the covered time
+    window and drop the border-cropped rim, so the gate runs on a field
+    without NaN frames."""
     covered_t = plan.num_time_chunks * icfg.sequence_length
-    pred = pred[:covered_t]
+    pred = pred[..., :covered_t, :, :, :]
     b = icfg.border_crop
     if b:
         pred = pred[..., b:-b, b:-b, :]
     return pred
 
 
-def _assemble_output(pred, plan, icfg, time_vals, lat, lon) -> Dataset:
-    """Trimmed canvas (:func:`_trim_canvas`) -> output Dataset."""
+def _assemble_output(pred, member_axis, plan, icfg, time_vals, lat, lon,
+                     ensemble_members) -> Dataset:
+    """Trimmed canvas (:func:`_trim_canvas`) -> output Dataset, with a
+    leading ``member`` axis for an ensemble."""
     covered_t = plan.num_time_chunks * icfg.sequence_length
     b = icfg.border_crop
     if b:
@@ -198,6 +282,10 @@ def _assemble_output(pred, plan, icfg, time_vals, lat, lon) -> Dataset:
         "lon_1": DataArray(("lon_1",), lon),
     }
     dims = ("time", "lat_1", "lon_1")
+    if member_axis:
+        coords["member"] = DataArray(
+            ("member",), np.arange(ensemble_members))
+        dims = ("member",) + dims
     data_vars = {
         "u10": DataArray(dims, pred[..., 0]),
         "v10": DataArray(dims, pred[..., 1]),

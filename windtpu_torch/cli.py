@@ -1,9 +1,15 @@
-"""Console entry point ``downscale`` of the port.
+"""Console entry points of the port.
 
-Same contract as ``windtpu/cli.py:main`` (``--era --dem --date --lon --lat
--o``: reads ``{date}*surface*.nc`` ERA5 files and a GeoTIFF DEM, writes a
-NetCDF of downscaled u10/v10), plus ``--device`` (default: the card).
-Run as ``python -m windtpu_torch.cli``.
+``main`` (``downscale``) has the contract of ``windtpu/cli.py:main``
+(``--era --dem --date --lon --lat -o``: reads ``{date}*surface*.nc`` ERA5
+files and a GeoTIFF DEM, writes a NetCDF of downscaled u10/v10, with
+``--ensemble N`` members), plus ``--device`` (default: the card).  Run as
+``python -m windtpu_torch.cli``.
+
+``train_main`` is ``windtpu/cli.py:train_main`` on one device: it reads
+``x_{date}.nc`` / ``y_{date}.nc`` days (or synthetic ones) through
+``data.BatchGenerator`` and trains with ``train.loop.train``.  Run as
+``python -m windtpu_torch.cli train ...``.
 """
 
 from __future__ import annotations
@@ -61,5 +67,125 @@ def main(argv=None):
     print(f"wrote {args.output}")
 
 
+def train_main(argv=None):
+    parser = argparse.ArgumentParser(description="Train the downscaling GAN")
+    parser.add_argument("--inputs", required=True,
+                        help="dir with x_{date}.nc training inputs")
+    parser.add_argument("--outputs", required=True,
+                        help="dir with y_{date}.nc training targets")
+    parser.add_argument("--checkpoint-dir", required=True)
+    parser.add_argument("--steps", type=int, default=1000)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--patch-size", type=int, default=32)
+    parser.add_argument("--sequence-length", type=int, default=6)
+    parser.add_argument("--start-date", default=None)
+    parser.add_argument("--end-date", default=None)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on synthetic data (smoke test)")
+    parser.add_argument("--checkpoint-every", type=int, default=200)
+    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--g-lr", type=float, default=None,
+                        help="generator Adam learning rate (default 1e-4)")
+    parser.add_argument("--d-lr", type=float, default=None,
+                        help="critic Adam learning rate (default 4e-4)")
+    parser.add_argument("--n-critic", type=int, default=None,
+                        help="critic updates per generator update "
+                             "(default 3)")
+    parser.add_argument("--reconstruction-coefficient", type=float,
+                        default=None,
+                        help="perceptual reconstruction loss weight "
+                             "(default 0 = off; > 0 waits for the "
+                             "autoencoder slice, ROADMAP A10)")
+    parser.add_argument("--steps-per-call", type=int, default=None,
+                        help="optimizer steps per call of the step "
+                             "function (K=1 default keeps per-step "
+                             "logging)")
+    parser.add_argument("--spatial-ks", action="store_true",
+                        help="compute the spatially convolved KS metric "
+                             "in every step (TrainConfig.compute_spatial_ks)")
+    parser.add_argument("--steps-per-call-unroll", action="store_true",
+                        help="accepted for the JAX CLI's sake; no effect "
+                             "in eager PyTorch, which has no scan to "
+                             "unroll")
+    parser.add_argument("--coordinator-address", default=None,
+                        help="multi-process training: not ported yet "
+                             "(ROADMAP A12)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="multi-process training: not ported yet "
+                             "(ROADMAP A12)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="multi-process training: not ported yet "
+                             "(ROADMAP A12)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; 'cpu' to run "
+                             "on the CPU)")
+    args = parser.parse_args(argv)
+
+    if (args.coordinator_address is not None
+            or args.num_processes is not None
+            or args.process_id is not None):
+        raise NotImplementedError(
+            "--coordinator-address / --num-processes / --process-id: "
+            "multi-process training comes with the multi-GPU slice "
+            "(ROADMAP A12)")
+
+    from windtpu_torch.core.config import (DataConfig, GANConfig,
+                                           ModelConfig, TrainConfig)
+    from windtpu_torch.core.device import resolve_device
+    from windtpu_torch.data import (BatchGenerator, LocalFileProvider,
+                                    SyntheticDayProvider)
+    from windtpu_torch.train.loop import train
+    from windtpu_torch.train.wgan_gp import check_ported
+
+    device = resolve_device(args.device)  # fail before reading any input
+    dcfg = DataConfig(sequence_length=args.sequence_length,
+                      patch_size=args.patch_size,
+                      batch_size=args.batch_size)
+    overrides = {
+        k: v for k, v in {
+            "g_learning_rate": args.g_lr,
+            "d_learning_rate": args.d_lr,
+            "n_critic": args.n_critic,
+            "reconstruction_coefficient": args.reconstruction_coefficient,
+            "steps_per_call": args.steps_per_call,
+        }.items() if v is not None}
+    if args.steps_per_call_unroll:
+        overrides["steps_per_call_unroll"] = True
+    if args.spatial_ks:
+        overrides["compute_spatial_ks"] = True
+    cfg = GANConfig(
+        model=ModelConfig(image_size=args.patch_size,
+                          in_channels=len(dcfg.input_variables),
+                          sequence_length=args.sequence_length),
+        train=TrainConfig(batch_size=args.batch_size, **overrides),
+        data=dcfg,
+        checkpoint_dir=args.checkpoint_dir,
+    )
+    check_ported(cfg.train)
+    if args.synthetic:
+        dates = [f"2020010{i}" for i in range(1, 8)]
+        in_prov = SyntheticDayProvider(dates, dcfg.input_variables,
+                                       ny=64, nx=64, nt=24)
+        out_prov = SyntheticDayProvider(dates, dcfg.output_variables,
+                                        ny=64, nx=64, nt=24, seed=7)
+    else:
+        in_prov = LocalFileProvider(args.inputs, "x_{date}.nc")
+        out_prov = LocalFileProvider(args.outputs, "y_{date}.nc")
+    bg = BatchGenerator(in_prov, output_provider=out_prov,
+                        start_date=args.start_date, end_date=args.end_date,
+                        config=dcfg, num_workers=2)
+    state, _ = train(cfg, bg.as_device_iterator(device),
+                     num_steps=args.steps,
+                     checkpoint_every=args.checkpoint_every,
+                     profile_dir=args.profile_dir, device=device)
+    print(f"done at step {int(state.step)}")
+    return state
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["train"]:
+        train_main(sys.argv[2:])
+    else:
+        main()

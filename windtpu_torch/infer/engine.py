@@ -1,5 +1,5 @@
 """Tiled inference engine, single device (counterpart of the monolithic
-predictor in ``windtpu/infer/engine.py``).
+predictor and ``downscale_field`` in ``windtpu/infer/engine.py``).
 
 The whole (T, H, W, C) field and the output canvas stay on the device:
 
@@ -12,23 +12,33 @@ The whole (T, H, W, C) field and the output canvas stay on the device:
 
 Kept from the JAX engine: patches are fed lat-reversed and un-reversed on
 output; ``replicate_normalization_quirk`` gives per-(lon, channel)
-statistics with padded patches weighted out; ``std == 0 -> 1``.  Noise is
-one draw per patch group, in group order, from the caller's
+statistics with padded patches weighted out; ``std == 0 -> 1``; every
+slice start is clamped into the field the way ``jax.lax.dynamic_slice``
+and ``dynamic_update_slice`` clamp it, so a plan whose covered window runs
+past the field shifts its patches back instead of failing.  Noise is one
+draw per patch group, in group order, from the caller's
 ``torch.Generator``; it cannot reproduce JAX's ``fold_in`` streams.
+
+Ensembles: ``run`` takes one generator per member.  Each group's
+normalized patches are gathered once and go through one generator forward
+over members x group patches; member ``m``'s noise comes from its own
+generator with the one-member shape, so member ``m`` equals a one-member
+run with that generator up to the batched forward's summation order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from windtpu_torch.core.config import InferenceConfig, ModelConfig
 from windtpu_torch.core.device import resolve_device
-from windtpu_torch.infer.tiling import TilingPlan
+from windtpu_torch.infer.tiling import TilingPlan, plan_tiling
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+Seed = Union[int, torch.Generator]
 
 
 def _pad_to_multiple(arr: np.ndarray, multiple: int):
@@ -63,15 +73,46 @@ def _grouped_origins(plan: TilingPlan, group: int):
     return origins_np.reshape(-1, group, 3), weights_np.reshape(-1, group)
 
 
-def _patch_indices(origins: np.ndarray, img: int, seq: int):
-    """Gather indices for a group of patches: (n, seq, 1, 1) time,
-    (n, 1, img, 1) lat (reversed rows) and (n, 1, 1, img) lon."""
-    sx, sy, k = origins[:, 0], origins[:, 1], origins[:, 2]
-    ti = (k * seq)[:, None] + np.arange(seq)[None, :]
-    yi = sy[:, None] + np.arange(img - 1, -1, -1)[None, :]
-    xi = sx[:, None] + np.arange(img)[None, :]
+def _clamp(start: np.ndarray, size: int, dim: int) -> np.ndarray:
+    """``dynamic_slice`` start clamping: a slice of ``size`` along a ``dim``
+    long axis starts in [0, dim - size]."""
+    return np.clip(start, 0, max(dim - size, 0))
+
+
+def _patch_indices(origins: np.ndarray, img: int, seq: int,
+                   shape: Tuple[int, int, int]):
+    """Gather indices for a group of patches of a (T, H, W, C) field of
+    ``shape`` (T, H, W): (n, seq, 1, 1) time, (n, 1, img, 1) lat (reversed
+    rows) and (n, 1, 1, img) lon, each start clamped into the field."""
+    t_total, h, w = shape
+    t0 = _clamp(origins[:, 2] * seq, seq, t_total)
+    y0 = _clamp(origins[:, 1], img, h)
+    x0 = _clamp(origins[:, 0], img, w)
+    ti = t0[:, None] + np.arange(seq)[None, :]
+    yi = y0[:, None] + np.arange(img - 1, -1, -1)[None, :]
+    xi = x0[:, None] + np.arange(img)[None, :]
     return (ti[:, :, None, None], yi[:, None, :, None],
             xi[:, None, None, :])
+
+
+def _stitch_starts(origins: np.ndarray, seq: int, img: int, crop: int,
+                   shape: Tuple[int, int, int]) -> np.ndarray:
+    """(n, 3) canvas starts (t, y, x) of the cropped updates.  The CROPPED
+    update (size = img - 2*crop) is clamped against the canvas, as the JAX
+    engine's ``dynamic_update_slice`` does; for h - img < sy <= h - img +
+    crop that differs from clamping the patch start and adding ``crop``."""
+    t_total, h, w = shape
+    size = img - 2 * crop
+    return np.stack([_clamp(origins[:, 2] * seq, seq, t_total),
+                     _clamp(origins[:, 1] + crop, size, h),
+                     _clamp(origins[:, 0] + crop, size, w)], axis=1)
+
+
+def _as_generator(g: Seed, device: torch.device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device``; an int is its seed."""
+    if isinstance(g, torch.Generator):
+        return g
+    return torch.Generator(device=device).manual_seed(int(g))
 
 
 def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
@@ -82,33 +123,40 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
     ``field``: (T, H, W, in_channels) float32 on ``device``, already merged
     (u10, v10, elevation/1e3) on the high-res grid.  ``prediction``:
     (T, H, W, out_channels) float32 with NaN where no patch contributed.
-    ``generator``: the ``torch.Generator`` the noise is drawn from.
-    ``apply_fn(patches, noise) -> preds`` runs the network: the generator
-    module, or a stand-in that tests the tiling and stitch alone.  The
-    origins, validity weights, coverage map and gather indices are built
-    once here, on the host, and moved to ``device`` (``None`` means the
-    card; see ``core.device.resolve_device``)."""
+    ``generator``: the ``torch.Generator`` the noise is drawn from, or a
+    sequence of them, one per ensemble member; then ``prediction`` is
+    (M, T, H, W, out_channels).  ``apply_fn(patches, noise) -> preds`` runs
+    the network: the generator module, or a stand-in that tests the tiling
+    and stitch alone.  The origins, validity weights and coverage map are
+    built once here, on the host, and moved to ``device`` (``None`` means
+    the card; see ``core.device.resolve_device``)."""
     device = resolve_device(device)
     img, seq, crop = plan.image_size, plan.sequence_length, icfg.border_crop
+    size = img - 2 * crop
     origins_g, weights_np = _grouped_origins(plan, icfg.group_size)
     weights = torch.as_tensor(weights_np, device=device)
     coverage = torch.as_tensor(
         _coverage_counts(plan, origins_g, weights_np, crop), device=device)
-    indices = [tuple(torch.as_tensor(ix, device=device)
-                     for ix in _patch_indices(o, img, seq))
-               for o in origins_g]
     reduce_axes = ((0, 1, 2) if icfg.replicate_normalization_quirk
                    else (0, 1, 2, 3))
+    plans_by_shape = {}
 
-    def gather_group(field, g):
-        ti, yi, xi = indices[g]
-        return field[ti, yi, xi]  # (group, seq, img, img, C)
+    def field_plan(shape):
+        """Per field shape: each group's gather indices on the device and
+        its stitch starts on the host."""
+        if shape not in plans_by_shape:
+            plans_by_shape[shape] = [
+                (tuple(torch.as_tensor(ix, device=device)
+                       for ix in _patch_indices(o, img, seq, shape)),
+                 _stitch_starts(o, seq, img, crop, shape).tolist())
+                for o in origins_g]
+        return plans_by_shape[shape]
 
-    def stats_pass(field):
+    def stats_pass(field, groups):
         """NaN-aware mean/std of the stacked patch tensor."""
         s = s2 = n = 0.0
-        for g in range(len(indices)):
-            patches = gather_group(field, g)
+        for g, (ix, _) in enumerate(groups):
+            patches = field[ix]
             nan = torch.isnan(patches)
             mask = (~nan).float() * weights[g][:, None, None, None, None]
             vals = torch.where(nan, torch.zeros_like(patches), patches)
@@ -121,30 +169,77 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
         return mean, torch.where(std == 0, torch.ones_like(std), std)
 
     @torch.no_grad()
-    def run(field: torch.Tensor, generator: torch.Generator
+    def run(field: torch.Tensor,
+            generator: Union[torch.Generator, Sequence[torch.Generator]]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        members = isinstance(generator, (list, tuple))
+        gens = list(generator) if members else [generator]
+        n_members = len(gens)
         t_total, h, w, _ = field.shape
-        mean, std = stats_pass(field)
+        groups = field_plan((t_total, h, w))
+        mean, std = stats_pass(field, groups)
         counts = coverage
         if counts.shape[0] < t_total:
             counts = torch.cat([counts, counts.new_zeros(
                 (t_total - counts.shape[0],) + tuple(counts.shape[1:]))])
         counts = counts[:t_total]
-        canvas = field.new_zeros((t_total, h, w, mcfg.out_channels))
+        canvas = field.new_zeros((n_members, t_total, h, w,
+                                  mcfg.out_channels))
         noise_shape = (icfg.group_size, seq, img, img, mcfg.noise_channels)
-        for g, origins in enumerate(origins_g):
-            normalized = (gather_group(field, g) - mean) / std
-            noise = icfg.noise_std * torch.randn(
-                noise_shape, generator=generator, device=field.device)
+        for g, (ix, starts) in enumerate(groups):
+            normalized = (field[ix] - mean) / std
+            noise = torch.cat([icfg.noise_std * torch.randn(
+                noise_shape, generator=gen, device=field.device)
+                for gen in gens])
+            if n_members > 1:
+                normalized = normalized.repeat(n_members, 1, 1, 1, 1)
             preds = apply_fn(normalized, noise)
             # Un-reverse rows, crop borders, weight out padded patches.
             preds = preds.flip(2)[:, :, crop:img - crop, crop:img - crop]
-            preds = preds * weights[g][:, None, None, None, None]
-            for i, (sx, sy, k) in enumerate(origins.tolist()):
-                canvas[k * seq:(k + 1) * seq, sy + crop:sy + img - crop,
-                       sx + crop:sx + img - crop] += preds[i]
-        out = torch.where(counts > 0, canvas / torch.clamp(counts, min=1.0),
-                          torch.full_like(canvas, float("nan")))
-        return out, counts[..., 0]
+            preds = preds.reshape((n_members, icfg.group_size)
+                                  + tuple(preds.shape[1:]))
+            preds = preds * weights[g][None, :, None, None, None, None]
+            for i, (t0, y0, x0) in enumerate(starts):
+                canvas[:, t0:t0 + seq, y0:y0 + size,
+                       x0:x0 + size] += preds[:, i]
+        # In place: the overlap mean adds no canvas-sized temporary.
+        out = canvas.div_(torch.clamp(counts, min=1.0)).masked_fill_(
+            counts == 0, float("nan"))
+        return (out if members else out[0]), counts[..., 0]
 
     return run
+
+
+def downscale_field(
+    apply_fn: ApplyFn,
+    field,                           # (T, H, W, in_channels)
+    mcfg: ModelConfig,
+    icfg: Optional[InferenceConfig] = None,
+    generator: Optional[Seed] = None,
+    plan: Optional[TilingPlan] = None,
+    ensemble_generators: Optional[Sequence[Seed]] = None,
+    device=None,
+) -> Tuple[torch.Tensor, TilingPlan]:
+    """Tile + predict + stitch a full field on one device.  Returns
+    (prediction, plan).
+
+    ``field`` is a tensor or a numpy array, moved to ``device`` (``None``
+    means the card).  ``generator`` is a ``torch.Generator`` or an int
+    seed (default seed 0).  With ``ensemble_generators`` (generators or
+    seeds, one per member) the result gains a leading member axis: the
+    members share each group's gather and run as one batched forward."""
+    device = resolve_device(device)
+    icfg = icfg or InferenceConfig(
+        sequence_length=mcfg.sequence_length, image_size=mcfg.image_size,
+        noise_channels=mcfg.noise_channels)
+    field = torch.as_tensor(field, dtype=torch.float32, device=device)
+    t, h, w, _ = field.shape
+    if plan is None:
+        plan = plan_tiling(h, w, t, icfg.image_size, icfg.sequence_length,
+                           icfg.overlap_factor)
+    predictor = make_tiled_predictor(mcfg, icfg, plan, apply_fn, device)
+    if ensemble_generators is not None:
+        gens = [_as_generator(g, device) for g in ensemble_generators]
+        return predictor(field, gens)[0], plan
+    gen = _as_generator(0 if generator is None else generator, device)
+    return predictor(field, gen)[0], plan

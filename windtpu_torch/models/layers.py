@@ -526,8 +526,14 @@ def init_variables(model: nn.Module, seed: int) -> nn.Module:
 
 def bilinear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Keras UpSampling2D(size=2, interpolation='bilinear') on
-    (B, T, H, W, C), half-pixel centres."""
+    (B, T, H, W, C), half-pixel centres.  CUDA's channels-last kernel
+    takes outputs under 2^31 elements, so a larger batch (an ensemble's
+    members x patches) is upsampled in slices of frames."""
     folded = _fold(x).permute(0, 3, 1, 2)
-    y = F.interpolate(folded, scale_factor=2, mode="bilinear",
-                      align_corners=False)
+    per_frame = 4 * folded[0].numel()
+    step = max(1, (2 ** 31 - 1) // per_frame)
+    parts = [F.interpolate(folded[i:i + step], scale_factor=2,
+                           mode="bilinear", align_corners=False)
+             for i in range(0, folded.shape[0], step)]
+    y = parts[0] if len(parts) == 1 else torch.cat(parts)
     return _unfold(y.permute(0, 2, 3, 1), x.shape[0])
