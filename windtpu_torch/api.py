@@ -108,10 +108,11 @@ def _engine_hbm_bytes(t: int, h: int, w: int, in_ch: int,
 # at 2.29, 9.15 and 30.52 GiB above the weights for estimates of 0.5, 3
 # and 12 GiB (24 h square domains), 2.54x the estimate at 12 GiB; the fit
 # 2.43 x estimate + 1.4 GiB reaches the card's 79.2 GiB at about 32 GiB.
-# The default is the largest measured fit, 12 GiB: under 40% of the card,
-# which leaves room for an ensemble's larger generator batch (the estimate
-# scales only the canvases with the members).  chip_smoke.py measures it
-# again on every run.  Override with WINDTPU_STREAMING_BYTES.
+# The default is the largest measured fit, 12 GiB: under 40% of the card.
+# With 4 members at that threshold (2590 x 2590, 11.995 GiB, one 64-patch
+# forward per group, the gate one member at a time) the peak was 19.06
+# GiB, 1.59x the estimate.  chip_smoke.py measures all four points again
+# on every run.  Override with WINDTPU_STREAMING_BYTES.
 _STREAMING_DEFAULT_BYTES = 12 << 30
 
 
@@ -242,17 +243,27 @@ def predict(
                                   plan=plan, device=dev, **members)
         pred = _trim_canvas(pred, plan, icfg)
         if gate_params is not None:
-            from windtpu_torch.models.texture_gate import apply_gate_targeted
-
-            pred = apply_gate_targeted(
+            _gate_members_on_device(
                 torch.as_tensor(gate_target, device=dev),
-                torch.as_tensor(gate_floor, device=dev), pred)
+                torch.as_tensor(gate_floor, device=dev), pred, member_axis)
         pred = pred.cpu().numpy()
         mode = "ensemble" if member_axis else "single"
     _LAST_RUN.clear()
     _LAST_RUN.update(mode=mode, texture_gate=gate_params is not None)
     return _assemble_output(pred, member_axis, plan, icfg, time_vals, lat,
                             lon, ensemble_members)
+
+
+def _gate_members_on_device(target, floor, pred, member_axis: bool) -> None:
+    """Apply the texture gate to the trimmed device canvas ``pred`` in
+    place, one member at a time.  The gate's FFT buffers are several
+    canvases large: gating 4 members at once at the default threshold
+    (a 24 h 2590 x 2590 domain) peaked above half of an NVIDIA H100 80GB
+    HBM3 (700 W), which one member at a time avoids."""
+    from windtpu_torch.models.texture_gate import apply_gate_targeted
+
+    for member in (pred if member_axis else pred[None]):
+        member.copy_(apply_gate_targeted(target, floor, member))
 
 
 def _trim_canvas(pred, plan, icfg):

@@ -101,8 +101,12 @@ def train_main(argv=None):
                              "function (K=1 default keeps per-step "
                              "logging)")
     parser.add_argument("--spatial-ks", action="store_true",
-                        help="compute the spatially convolved KS metric "
-                             "in every step (TrainConfig.compute_spatial_ks)")
+                        help="port only; the JAX CLI has no such flag "
+                             "and its train_main never computes the metric: "
+                             "compute the spatially convolved KS metric in "
+                             "every step (TrainConfig.compute_spatial_ks). "
+                             "chip_smoke.py sets it so that train_main "
+                             "launches the spatial KS kernel")
     parser.add_argument("--steps-per-call-unroll", action="store_true",
                         help="accepted for the JAX CLI's sake; no effect "
                              "in eager PyTorch, which has no scan to "

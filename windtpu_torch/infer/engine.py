@@ -108,6 +108,32 @@ def _stitch_starts(origins: np.ndarray, seq: int, img: int, crop: int,
                      _clamp(origins[:, 0] + crop, size, w)], axis=1)
 
 
+def _group_apply(apply_fn: ApplyFn, patches: torch.Tensor,
+                 weights: torch.Tensor, generators: Sequence[torch.Generator],
+                 mcfg: ModelConfig, icfg: InferenceConfig) -> torch.Tensor:
+    """One group of normalized, lat-reversed patches -> (M, group, seq,
+    size, size, out_channels) cropped, validity-weighted predictions, one
+    row per member; both engines call it.
+
+    The patches are upcast to f32; member ``m``'s noise is drawn on the
+    patches' device from ``generators[m]`` with the one-member shape; the
+    members run as one batched forward."""
+    img, crop = patches.shape[2], icfg.border_crop
+    n_members = len(generators)
+    patches = patches.float()
+    noise_shape = tuple(patches.shape[:-1]) + (mcfg.noise_channels,)
+    noise = torch.cat([icfg.noise_std * torch.randn(
+        noise_shape, generator=gen, device=patches.device)
+        for gen in generators])
+    if n_members > 1:
+        patches = patches.repeat(n_members, 1, 1, 1, 1)
+    preds = apply_fn(patches, noise)
+    # Un-reverse rows, crop borders, weight out padded patches.
+    preds = preds.flip(2)[:, :, crop:img - crop, crop:img - crop]
+    preds = preds.reshape((n_members, -1) + tuple(preds.shape[1:]))
+    return preds * weights[None, :, None, None, None, None]
+
+
 def _as_generator(g: Seed, device: torch.device) -> torch.Generator:
     """A ``torch.Generator`` on ``device``; an int is its seed."""
     if isinstance(g, torch.Generator):
@@ -185,20 +211,9 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
         counts = counts[:t_total]
         canvas = field.new_zeros((n_members, t_total, h, w,
                                   mcfg.out_channels))
-        noise_shape = (icfg.group_size, seq, img, img, mcfg.noise_channels)
         for g, (ix, starts) in enumerate(groups):
-            normalized = (field[ix] - mean) / std
-            noise = torch.cat([icfg.noise_std * torch.randn(
-                noise_shape, generator=gen, device=field.device)
-                for gen in gens])
-            if n_members > 1:
-                normalized = normalized.repeat(n_members, 1, 1, 1, 1)
-            preds = apply_fn(normalized, noise)
-            # Un-reverse rows, crop borders, weight out padded patches.
-            preds = preds.flip(2)[:, :, crop:img - crop, crop:img - crop]
-            preds = preds.reshape((n_members, icfg.group_size)
-                                  + tuple(preds.shape[1:]))
-            preds = preds * weights[g][None, :, None, None, None, None]
+            preds = _group_apply(apply_fn, (field[ix] - mean) / std,
+                                 weights[g], gens, mcfg, icfg)
             for i, (t0, y0, x0) in enumerate(starts):
                 canvas[:, t0:t0 + seq, y0:y0 + size,
                        x0:x0 + size] += preds[:, i]

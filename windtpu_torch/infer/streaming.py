@@ -38,37 +38,11 @@ from windtpu_torch.infer.engine import (
     Seed,
     _as_generator,
     _coverage_counts,
+    _group_apply,
     _grouped_origins,
+    _stitch_starts,
 )
 from windtpu_torch.infer.tiling import TilingPlan, plan_tiling
-
-
-def _group_apply(apply_fn: ApplyFn, patches: torch.Tensor,
-                weights: torch.Tensor, generators: Sequence[torch.Generator],
-                mcfg: ModelConfig, icfg: InferenceConfig) -> torch.Tensor:
-    """One uploaded group -> (M, group, seq, size, size, out_channels)
-    cropped, validity-weighted predictions, one row per member.
-
-    The patches are upcast to f32; member ``m``'s noise is drawn on the
-    device from ``generators[m]`` with the monolithic engine's shape; the
-    members run as one batched forward.  The result is cast to bf16 when
-    the transfer dtype is bf16."""
-    img, crop = patches.shape[2], icfg.border_crop
-    n_members = len(generators)
-    patches = patches.float()
-    noise_shape = tuple(patches.shape[:-1]) + (mcfg.noise_channels,)
-    noise = torch.cat([icfg.noise_std * torch.randn(
-        noise_shape, generator=gen, device=patches.device)
-        for gen in generators])
-    if n_members > 1:
-        patches = patches.repeat(n_members, 1, 1, 1, 1)
-    preds = apply_fn(patches, noise)
-    preds = preds.flip(2)[:, :, crop:img - crop, crop:img - crop]
-    preds = preds.reshape((n_members, -1) + tuple(preds.shape[1:]))
-    preds = preds * weights[None, :, None, None, None, None]
-    if icfg.streaming_transfer_dtype == "bfloat16":
-        return preds.to(torch.bfloat16)
-    return preds
 
 
 def _clamped_start(start: int, size: int, dim: int) -> int:
@@ -262,7 +236,7 @@ def downscale_field_streaming(
         else:
             dev_in = host_in
         preds = _group_apply(apply_fn, dev_in, weights_dev[g], gens, mcfg,
-                             icfg)
+                             icfg).to(dtype)
         # Group g-2's download from this slot was stitched before group g-1
         # was dispatched, so the slot is free.
         down.buffers[slot].copy_(preds, non_blocking=cuda)
@@ -272,20 +246,12 @@ def downscale_field_streaming(
         slot = g % 2
         down.wait(slot)
         preds = down.buffers[slot].float().numpy()
-        for i in range(group):
-            if not weights_g[g, i]:
-                continue
-            sx, sy, k = (int(v) for v in origins_g[g, i])
-            t0 = _clamped_start(k * seq, seq, t_total)
-            # Stitch starts clamp exactly as the engine's
-            # dynamic_update_slice does: the CROPPED update (size =
-            # img - 2*crop) is clamped against the canvas, which for
-            # h - img < sy <= h - img + crop differs from clamping
-            # the patch start and then adding crop.
-            y0 = _clamped_start(sy + crop, size, h)
-            x0 = _clamped_start(sx + crop, size, w_pix)
-            canvases[:, t0:t0 + seq, y0:y0 + size,
-                     x0:x0 + size] += preds[:, i]
+        starts = _stitch_starts(origins_g[g], seq, img, crop,
+                                (t_total, h, w_pix))
+        for i, (t0, y0, x0) in enumerate(starts.tolist()):
+            if weights_g[g, i]:
+                canvases[:, t0:t0 + seq, y0:y0 + size,
+                         x0:x0 + size] += preds[:, i]
 
     with torch.no_grad():
         for g in range(origins_g.shape[0]):
