@@ -25,10 +25,11 @@ Phases, each of which ends the script with a nonzero exit on failure:
 5. downscale path: ``windtpu_torch.api.downscale`` of the flagship inference
    domain (24 h, 546 x 756 px, 63 patches) with the bundled generator and
    texture gate; checks the output and the kernel's launches, times one
-   call after a warm-up, and profiles one more call;
+   call after a warm-up, profiles one more call, and times the
+   generator's bilinear upsample before and after its NaN repair;
 6. training reference: two WGAN-GP steps in f32 at a small shape on the
    card against the same two steps on the CPU, each step from the same
-   state and draws;
+   state and draws, without and with the reconstruction loss;
 7. training path: ``WindDownscalingGAN`` at the flagship training shape
    (batch 2, 96 px, T=24, generator F=128, critic F=16, bf16) with the
    metric suite and the spatial KS on, ``train.loop.train`` for four steps
@@ -47,7 +48,15 @@ Phases, each of which ends the script with a nonzero exit on failure:
 9. train entry: ``cli.train_main`` with ``--synthetic`` at its default shape
    (batch 16, 32 px, T=6, F=128) and the spatial KS on; seconds per step,
    peak memory and both kernels' launches;
-10. one JSON line with the kernels, then the result line.
+10. prepare path: ``cli.prepare_main topo`` of a DEM over the COSMO-1
+    window at 3 arc-seconds (about 22 Mpx, with NaN holes) on the card
+    under PyTorch's default TF32 settings and on the CPU, the eight
+    descriptors held against each other; ``prepare daily`` of two
+    fabricated ERA5 + COSMO-1 days; ``cli.train_main`` on them with
+    ``--reconstruction-coefficient 1.0`` at 96 px, T=24, batch 2 (where the
+    bundled encoder loads, which it checks), seconds per step, peak memory
+    and K1's launches;
+11. one JSON line with the kernels, then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -82,6 +91,8 @@ TRAIN_SHAPE = (2, 24, 24, 24, 128)
 # so K1 takes its f32 route there).
 ENSEMBLE_SHAPE = (64, 24, 24, 24, 128)
 TRAIN_MAIN_SHAPE = (16, 6, 8, 8, 128)
+# ... and in train_main on the prepared days (batch 2, 96 px, T=24, f32).
+PREPARE_SHAPE = (2, 24, 24, 24, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
 NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
@@ -133,6 +144,18 @@ THRESHOLD_DOMAINS = [(836, 836, 1), (2048, 2048, 1), (4096, 4096, 1),
 THRESHOLD_SHARE = 0.5
 # train_main's default shape and the steps of its two timed runs.
 TRAIN_MAIN_STEPS = (2, 6)
+# The reconstruction loss's weight in the training reference and on the
+# prepare path (the JAX CLI's --reconstruction-coefficient 1.0).
+RECO_COEFFICIENT = 1.0
+# The prepare path: a DEM over the COSMO-1 window at 3 arc-seconds with
+# NaN holes, two days, and train_main's two timed runs on them.  The card's
+# descriptors against the CPU's: metres (elevation, TPI, ridge norm) and
+# the derivatives.
+DEM_STEP_DEG = 1.0 / 1200.0
+DEM_HOLES = 40
+PREPARE_DAYS = ("2020-01-01", "2020-01-02")
+PREPARE_TRAIN_STEPS = (2, 4)
+TOPO_M_TOL, TOPO_DERIVATIVE_TOL = 1e-3, 1e-5
 
 KERNELS = [{
     "name": "convlstm_seq",
@@ -235,6 +258,7 @@ def convlstm_kernel_phase() -> dict:
              (TRAIN_SHAPE, torch.bfloat16, True),
              (ENSEMBLE_SHAPE, torch.bfloat16, True),
              (TRAIN_MAIN_SHAPE, torch.float32, True),
+             (PREPARE_SHAPE, torch.float32, True),
              (RAGGED_SHAPE, torch.bfloat16, True),
              (RAGGED_SHAPE, torch.float32, False),
              (NARROW_SHAPE, torch.bfloat16, True)]
@@ -285,7 +309,8 @@ def convlstm_kernel_phase() -> dict:
     for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
                          (TRAIN_SHAPE, torch.bfloat16),
                          (ENSEMBLE_SHAPE, torch.bfloat16),
-                         (TRAIN_MAIN_SHAPE, torch.float32)):
+                         (TRAIN_MAIN_SHAPE, torch.float32),
+                         (PREPARE_SHAPE, torch.float32)):
         zx, rk = convlstm_inputs(shape, dtype, seed=0)
         library = library_convs(shape, rk, dtype)
         bound_ms, bound_by, flops, nbytes = convlstm_bound(
@@ -314,11 +339,13 @@ def convlstm_kernel_phase() -> dict:
                      "bound_by": bound_by, "library_ms": library_ms,
                      "f32_ms": f32_ms}
         else:
-            key = {TRAIN_SHAPE: "train", ENSEMBLE_SHAPE: "ensemble",
-                   TRAIN_MAIN_SHAPE: "train_main"}[shape]
+            key = {(TRAIN_SHAPE, torch.bfloat16): "train",
+                   (ENSEMBLE_SHAPE, torch.bfloat16): "ensemble",
+                   (TRAIN_MAIN_SHAPE, torch.float32): "train_main",
+                   (PREPARE_SHAPE, torch.float32): "prepare"}[shape, dtype]
             stats.update({f"{key}_library_ms": library_ms,
                           f"{key}_bound_ms": bound_ms})
-            if shape != TRAIN_SHAPE:   # the gradient phase times that one
+            if key != "train":   # the gradient phase times that one
                 stats[f"{key}_ms"] = ms
         print(line)
     stats.update(convlstm_gradient_phase())
@@ -627,7 +654,52 @@ def downscale_path_phase() -> dict:
 
     profile_device(lambda: api.downscale(era5, raster, network=network))
     profile_host(lambda: api.downscale(era5, raster, network=network))
+    upsample_repair_cost(network.cfg.model, groups)
     return counts
+
+
+def upsample_repair_cost(mcfg, calls: int) -> None:
+    """The generator's bilinear upsample at the downscale path's shape,
+    before the NaN repair (``F.interpolate`` alone) and after it (one NaN
+    reduction per plane and one fill), timed in turns; and the repaired
+    upsample's NaN planes on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from windtpu_torch.models import layers as L
+
+    inter = min((mcfg.in_channels + mcfg.noise_channels) * 8,
+                mcfg.generator_features)
+    shape = (MAIN_SHAPE[0], mcfg.sequence_length, mcfg.image_size // 2,
+             mcfg.image_size // 2, mcfg.generator_features // 4 + inter)
+    x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+
+    def before():
+        folded = L._fold(x).permute(0, 3, 1, 2)
+        y = F.interpolate(folded, scale_factor=2, mode="bilinear",
+                          align_corners=False)
+        return L._unfold(y.permute(0, 2, 3, 1), x.shape[0])
+
+    def after():
+        return L.bilinear_upsample_2x(x)
+
+    if not torch.equal(before(), after()):
+        fail("the repaired upsample changed a finite input's output")
+    fns = {"before": before, "after": after}
+    times = {"before": [], "after": []}
+    for name in ("before", "after", "after", "before"):
+        times[name].append(cuda_ms(fns[name], iters=20))
+    b, a = min(times["before"]), min(times["after"])
+    x[3, 5, 7, 9, 11] = float("nan")
+    nan = torch.isnan(after())
+    plane = nan[3, 5, :, :, 11]
+    if not (bool(plane.all()) and int(nan.sum()) == plane.numel()):
+        fail("the upsample's NaN did not fill exactly its (b, t, c) plane")
+    print(f"bilinear upsample {shape} bf16, one call: before the NaN repair "
+          f"{b:.4f} ms ({times['before']}), after {a:.4f} ms "
+          f"({times['after']}), +{100 * (a - b) / b:.1f}%; {calls} calls "
+          f"per downscale: {calls * b:.3f} -> {calls * a:.3f} ms; one NaN "
+          f"fills exactly its plane")
 
 
 def train_batches(cfg, n: int, seed: int):
@@ -644,25 +716,42 @@ def train_batches(cfg, n: int, seed: int):
 
 
 def training_reference_phase() -> None:
+    """Two f32 train steps on the card against the CPU, without and with
+    the reconstruction loss (its encoder from ``features.get_encoder_fn``
+    on each device: random weights of one seed at 24 px, the same on
+    both)."""
+    from windtpu_torch.core.config import GANConfig, ModelConfig, TrainConfig
+    from windtpu_torch.features import get_encoder_fn
+
+    for coefficient in (0.0, RECO_COEFFICIENT):
+        cfg = GANConfig(
+            model=ModelConfig(image_size=24, sequence_length=4,
+                              compute_dtype="float32"),
+            train=TrainConfig(batch_size=2, compute_spatial_ks=True,
+                              reconstruction_coefficient=coefficient))
+        feature_fns = {dev: (get_encoder_fn(24, 4, device=dev)
+                             if coefficient > 0 else None)
+                       for dev in ("cuda", "cpu")}
+        train_step_pair(cfg, feature_fns)
+
+
+def train_step_pair(cfg, feature_fns) -> None:
     import torch
 
-    from windtpu_torch.core.config import GANConfig, ModelConfig, TrainConfig
     from windtpu_torch.train.state import create_train_state
     from windtpu_torch.train.wgan_gp import draw_step_noise, make_train_step
     from windtpu_torch.weights import export_train_state, load_train_state
 
-    cfg = GANConfig(
-        model=ModelConfig(image_size=24, sequence_length=4,
-                          compute_dtype="float32"),
-        train=TrainConfig(batch_size=2, compute_spatial_ks=True))
     batches = train_batches(cfg, 2, seed=2)
-    step = make_train_step(cfg)
     devices = ("cuda", "cpu")
+    steps = {dev: make_train_step(cfg, feature_fn=feature_fns[dev])
+             for dev in devices}
     states = {dev: create_train_state(cfg, seed=3, device=dev)
               for dev in devices}
     rngs = {dev: torch.Generator().manual_seed(4) for dev in devices}
     seconds = dict.fromkeys(devices, 0.0)
     worst = worst_param = 0.0
+    coefficient = cfg.train.reconstruction_coefficient
     for i, (low_res, high_res) in enumerate(batches):
         if i > 0:
             # Each step starts from the CPU's state on both devices.  The
@@ -678,9 +767,13 @@ def training_reference_phase() -> None:
             draws = draw_step_noise(cfg, low_res.shape, high_res.shape[-1],
                                     rngs[dev], dev)
             t0 = time.perf_counter()
-            _, out = step(states[dev], low_res, high_res, draws=draws)
+            _, out = steps[dev](states[dev], low_res, high_res, draws=draws)
             metrics[dev] = {k: float(v) for k, v in out.items()}
             seconds[dev] += time.perf_counter() - t0
+        if coefficient > 0 and not metrics["cuda"]["g_reco_loss"] > 0:
+            fail(f"train step {i + 1}: g_reco_loss "
+                 f"{metrics['cuda']['g_reco_loss']!r} with the "
+                 f"reconstruction loss on")
         for key, value in metrics["cpu"].items():
             got = metrics["cuda"][key]
             err = abs(got - value) / max(1.0, abs(value))
@@ -696,11 +789,15 @@ def training_reference_phase() -> None:
         worst_param = max(worst_param, max(
             float(np.abs(got_state[k] - want_state[k]).max())
             for k in sample))
-    print(f"training reference: f32, batch 2, 24 px, T=4, F=128/16, two "
-          f"steps (card {seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} "
-          f"s), card vs CPU: metrics within {worst:.3e} (relative to "
-          f"max(1, |value|)), {len(sample)} sampled tensors of the updated "
-          f"state within {worst_param:.3e} (tol {REFERENCE_TOL:.0e})")
+    print(f"training reference: f32, batch 2, 24 px, T=4, F=128/16, "
+          f"reconstruction coefficient {coefficient}"
+          + (f" (g_reco_loss {metrics['cuda']['g_reco_loss']:.4f})"
+             if coefficient > 0 else "")
+          + f", two steps (card {seconds['cuda']:.2f} s, CPU "
+          f"{seconds['cpu']:.2f} s), card vs CPU: metrics within "
+          f"{worst:.3e} (relative to max(1, |value|)), {len(sample)} "
+          f"sampled tensors of the updated state within {worst_param:.3e} "
+          f"(tol {REFERENCE_TOL:.0e})")
     if worst_param > REFERENCE_TOL:
         fail("the card's f32 train steps disagree with the CPU's")
 
@@ -1148,6 +1245,273 @@ def train_entry_phase() -> dict:
     return {"convlstm_seq": k1, "spatial_ks": k2}
 
 
+def fabricate_dem(path: Path, seed: int):
+    """A DEM GeoTIFF over the COSMO-1 window at 3 arc-seconds, from
+    ``seed``: a coarse random relief upsampled 40x, clipped to 190-4,800 m,
+    with roughness, a 600 m cliff and rectangular NaN holes of 3 to 40 px.
+    Returns its shape."""
+    from scipy.ndimage import zoom
+
+    from windtpu_torch.assets import swiss_cosmo_grid
+    from windtpu_torch.io.geotiff import write_geotiff_like
+
+    grid = swiss_cosmo_grid()
+    lat, lon = grid["lat_1"].values, grid["lon_1"].values
+    ny = int(np.ceil((lat.max() - lat.min()) / DEM_STEP_DEG)) + 1
+    nx = int(np.ceil((lon.max() - lon.min()) / DEM_STEP_DEG)) + 1
+    y = lat.max() - DEM_STEP_DEG * np.arange(ny)      # north-up
+    x = lon.min() + DEM_STEP_DEG * np.arange(nx)
+    rng = np.random.default_rng(seed)
+    coarse = rng.standard_normal((ny // 40 + 2, nx // 40 + 2))
+    relief = zoom(coarse, 40, order=1)[:ny, :nx]
+    dem = np.clip(1800.0 + 1100.0 * relief, 190.0, 4800.0)
+    dem += 15.0 * rng.standard_normal((ny, nx))
+    dem[:, nx // 2:] += 600.0 * (np.arange(ny) > ny // 2)[:, None]
+    dem = dem.astype(np.float32)
+    for _ in range(DEM_HOLES):
+        h, w = rng.integers(3, 41, size=2)
+        r, c = rng.integers(0, ny - h), rng.integers(0, nx - w)
+        dem[r:r + h, c:c + w] = np.nan
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_geotiff_like(path, dem, x, y)
+    return dem.shape
+
+
+def fabricate_days(root: Path, days, seed: int) -> None:
+    """COSMO-1 days (U_10M, V_10M, 24 h on the 294 x 429 grid with its 2-D
+    lat_1/lon_1) and ERA5 days (surface u10, v10, blh, fsr, sp and 500 hPa
+    z, vo, d at 0.25 deg over the window), from ``seed``."""
+    from windtpu_torch.assets import swiss_cosmo_grid
+    from windtpu_torch.io.dataset import DataArray, Dataset
+
+    grid = swiss_cosmo_grid()
+    ny, nx = grid["lat_1"].values.shape
+    lat = np.arange(48.5, 45.0, -0.25)
+    lon = np.arange(5.0, 11.5, 0.25)
+    rng = np.random.default_rng(seed)
+    (root / "cosmo").mkdir(parents=True, exist_ok=True)
+    (root / "era5").mkdir(parents=True, exist_ok=True)
+    surface = {"u10": (2.0, 4.0), "v10": (0.0, 4.0), "blh": (600.0, 300.0),
+               "fsr": (0.5, 0.2), "sp": (85000.0, 5000.0)}
+    z500 = {"z": (55000.0, 500.0), "vo": (0.0, 1e-5), "d": (0.0, 1e-5)}
+    for day in days:
+        stamp = day.replace("-", "")
+        time_ = (np.datetime64(f"{day}T00", "h")
+                 + np.arange(24).astype("timedelta64[h]"))
+        dims = ("time", "y_1", "x_1")
+        Dataset(
+            {v: DataArray(dims, (3.0 * rng.standard_normal((24, ny, nx)))
+                          .astype(np.float32)) for v in ("U_10M", "V_10M")},
+            {"time": DataArray(("time",), time_), **grid.coords},
+        ).to_netcdf(root / "cosmo" / f"{stamp}.nc")
+        for name, variables in (("surface", surface), ("z500", z500)):
+            Dataset(
+                {v: DataArray(("time", "latitude", "longitude"), (
+                    mean + std * rng.standard_normal(
+                        (24, len(lat), len(lon)))).astype(np.float32))
+                 for v, (mean, std) in variables.items()},
+                {"time": DataArray(("time",), time_),
+                 "latitude": DataArray(("latitude",), lat),
+                 "longitude": DataArray(("longitude",), lon)},
+            ).to_netcdf(root / "era5" / f"{stamp}_era5_{name}_hourly.nc")
+
+
+def compare_descriptors(card_dir: Path, cpu_dir: Path) -> None:
+    """The eight descriptor files of the card's topo run against the CPU's:
+    elevation, TPI and ridge norm within TOPO_M_TOL metres, the derivatives
+    and the slope within TOPO_DERIVATIVE_TOL, the aspect's error times the
+    gradient's length within TOPO_DERIVATIVE_TOL (the angle of a vanishing
+    gradient is ill-conditioned), the ridge direction exactly where the
+    two largest directional responses differ by more than 1e-3 m."""
+    import torch
+
+    from windtpu_torch.io.dataset import open_dataset
+    from windtpu_torch.ops import stencil
+    from windtpu_torch.preprocess.topo import NAMES
+
+    card, cpu = {}, {}
+    for name in NAMES:
+        card[name] = open_dataset(card_dir / f"topo_{name}.nc")[name].values
+        ds = open_dataset(cpu_dir / f"topo_{name}.nc")
+        cpu[name] = ds[name].values
+    res_y, res_x = stencil.meters_per_pixel(ds["y"].values, ds["x"].values)
+    scale_px = max(int(round(500.0 / abs(res_x))), 1)
+    grad = np.hypot(cpu["we_derivative"], cpu["sn_derivative"])
+    for name in NAMES:
+        a, b = card[name], cpu[name]
+        if not np.isfinite(a).all():
+            fail(f"topo {name}: not finite on the card")
+        if name == "ridge_index_dir":
+            elev = torch.from_numpy(cpu["elevation"]).cuda()
+            kernels = np.stack([stencil._line_kernel(scale_px, t)
+                                for t in np.arange(4) * np.pi / 4])
+            resp = torch.clamp(elev[None] - stencil._masked_mean(
+                elev, kernels), min=0.0)
+            top2 = torch.topk(resp, 2, dim=0).values
+            clear = ((top2[0] - top2[1]) > 1e-3).cpu().numpy()
+            differ = int(np.count_nonzero(a[clear] != b[clear]))
+            print(f"topo {name}: {differ} differences outside near-ties "
+                  f"({100 * (1 - clear.mean()):.3f}% of pixels are within "
+                  f"1e-3 m of a tie)")
+            if differ:
+                fail(f"topo {name}: the card and the CPU disagree off "
+                     f"near-ties")
+            continue
+        if name == "aspect":
+            diff = np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - b))))
+            err = float((grad * diff).max())
+            tol, what = TOPO_DERIVATIVE_TOL, "|grad z| x angle error"
+        else:
+            err = float(np.abs(a - b).max())
+            tol, what = ((TOPO_M_TOL, "m") if name in (
+                "elevation", "tpi_500", "ridge_index_norm")
+                else (TOPO_DERIVATIVE_TOL, "max_abs_err"))
+        print(f"topo {name}: card vs CPU {what} {err:.3e} (tol {tol:.0e})")
+        if err > tol:
+            fail(f"topo {name}: the card disagrees with the CPU")
+
+
+def prepare_path_phase() -> dict:
+    """``prepare topo`` of a DEM over the COSMO-1 window on the card (under
+    PyTorch's default TF32 settings) and on the CPU, ``prepare daily`` of
+    two days, then ``train_main`` on those days with the reconstruction
+    loss at the geometry where the bundled encoder loads."""
+    import contextlib
+    import json
+    import os
+
+    import torch
+
+    from windtpu_torch import cli, features
+    from windtpu_torch.io.dataset import open_dataset
+    from windtpu_torch.ops import stencil
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.ops.ks import spatial_ks
+
+    work = ROOT / "build" / "chip_smoke_prepare"
+    shutil.rmtree(work, ignore_errors=True)
+    os.environ["CHECKPOINT_ROOT"] = str(work / "no_checkpoints")
+    t0 = time.perf_counter()
+    shape = fabricate_dem(work / "card" / "dem.tif", seed=11)
+    (work / "cpu").mkdir()
+    shutil.copy(work / "card" / "dem.tif", work / "cpu" / "dem.tif")
+    fabricate_days(work, PREPARE_DAYS, seed=12)
+    print(f"fabricated a {shape[0]} x {shape[1]} DEM "
+          f"({shape[0] * shape[1] / 1e6:.1f} Mpx, 3 arc-seconds) and "
+          f"{len(PREPARE_DAYS)} ERA5 + COSMO-1 days in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The topo job on the card under PyTorch's defaults (cuDNN TF32 on,
+    # cuBLAS TF32 off), which the stencils must not depend on; this
+    # script turns TF32 off everywhere else.
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        seconds = {}
+        for dev in ("card", "cpu"):
+            argv = ["topo", "--dem", str(work / dev / "dem.tif")]
+            if dev == "cpu":
+                argv += ["--device", "cpu"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(None):
+                cli.prepare_main(argv)
+            torch.cuda.synchronize()
+            seconds[dev] = time.perf_counter() - t0
+        # The trap the stencils avoid: the TPI with their full-f32 scope
+        # taken away, under the same defaults.
+        dem = torch.from_numpy(open_dataset(
+            work / "cpu" / "topo_elevation.nc")["elevation"].values).cuda()
+        scale_px = 8          # 500 m at 3 arc-seconds
+        scoped = stencil.tpi(dem, scale_px)
+        real_scope = stencil._full_f32
+        stencil._full_f32 = contextlib.nullcontext
+        try:
+            unscoped = stencil.tpi(dem, scale_px)
+        finally:
+            stencil._full_f32 = real_scope
+        tf32_err = float((unscoped - scoped).abs().max())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    print(f"prepare topo, {shape[0]} x {shape[1]} px: card {seconds['card']:.2f} "
+          f"s, CPU {seconds['cpu']:.2f} s (read, fill, stencils, eight "
+          f"NetCDF files written); under cuDNN's TF32 default a TPI "
+          f"without the stencils' full-f32 scope would differ by "
+          f"{tf32_err:.3e} m")
+    compare_descriptors(work / "card", work / "cpu")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        cli.prepare_main(["daily", "--processed", str(work / "days"),
+                          "--era5", str(work / "era5"), "--cosmo",
+                          str(work / "cosmo"), "--dem-dir",
+                          str(work / "card"), "--start", PREPARE_DAYS[0],
+                          "--end", PREPARE_DAYS[-1]])
+    daily_seconds = time.perf_counter() - t0
+    written = sorted(p.name for p in (work / "days").iterdir())
+    want = sorted(f"{k}_{d.replace('-', '')}.nc" for k in "xy"
+                  for d in PREPARE_DAYS)
+    if written != want:
+        fail(f"prepare daily wrote {written}, expected {want}")
+    print(f"prepare daily, {len(PREPARE_DAYS)} days of 24 x 294 x 429: "
+          f"{daily_seconds:.2f} s")
+
+    def run(steps: int):
+        directory = work / f"ck_{steps}"
+        shutil.rmtree(directory, ignore_errors=True)
+        with contextlib.redirect_stdout(None):
+            state = cli.train_main([
+                "--inputs", str(work / "days"), "--outputs",
+                str(work / "days"), "--checkpoint-dir", str(directory),
+                "--steps", str(steps), "--batch-size", "2",
+                "--patch-size", "96", "--sequence-length", "24",
+                "--reconstruction-coefficient", str(RECO_COEFFICIENT)])
+        logged = json.loads(
+            (directory / "metrics.jsonl").read_text().splitlines()[0])
+        return state, logged
+
+    run(1)                                               # warm-up
+    walls, counts = {}, {"convlstm_seq": 0, "spatial_ks": 0}
+    for steps in PREPARE_TRAIN_STEPS:
+        convlstm_seq.launches = spatial_ks.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        (state, logged), walls[steps], k1 = timed(lambda: run(steps))
+        peak = torch.cuda.max_memory_allocated()
+        seq = state.generator.config.sequence_length
+        if state.step != steps:
+            fail(f"train_main stopped at step {state.step} of {steps}")
+        if k1 != 5 * seq * steps or spatial_ks.launches:
+            fail(f"train_main on prepared days, {steps} steps: "
+                 f"convlstm_seq launched {k1} times (expected 5 generator "
+                 f"forwards x {seq} x {steps}), spatial_ks "
+                 f"{spatial_ks.launches} (expected 0)")
+        reco = logged["g_reco_loss"]
+        if not (np.isfinite(reco) and reco > 0
+                and all(np.isfinite(v) for v in logged.values())):
+            fail(f"train_main on prepared days: step 1 metrics {logged}")
+        counts["convlstm_seq"] += k1
+        print(f"train_main on the prepared days, batch 2 x T=24 x 96 px, "
+              f"F=128, f32, reconstruction coefficient {RECO_COEFFICIENT}, "
+              f"{steps} steps: {walls[steps]:.3f} s, convlstm_seq launches "
+              f"{k1} ({k1 // steps} per step), g_reco_loss {reco:.4f}, "
+              f"peak memory allocated {peak / 2**20:.0f} MiB")
+    profile_device(lambda: run(PREPARE_TRAIN_STEPS[0]))
+    source = features.get_encoder_fn(96, 24, device="cuda").source
+    if source != str(features.BUNDLED_AUTOENCODER):
+        fail(f"the perceptual loss's encoder came from {source}, not the "
+             f"bundled weights")
+    a, b = PREPARE_TRAIN_STEPS
+    print(f"train_main with the reconstruction loss: "
+          f"{(walls[b] - walls[a]) / (b - a):.4f} s per step (the "
+          f"difference of the two runs over {b - a} steps); encoder "
+          f"{Path(source).name}")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -1208,6 +1572,7 @@ PHASES = {
     "training path": training_path_phase,
     "streaming path": streaming_path_phase,
     "train entry": train_entry_phase,
+    "prepare path": prepare_path_phase,
 }
 
 
@@ -1252,7 +1617,8 @@ def main() -> int:
              "train": results["training path"],
              "streaming": {"convlstm_seq": streamed["streaming"]},
              "ensemble": {"convlstm_seq": streamed["ensemble"]},
-             "train_main": results["train entry"]}
+             "train_main": results["train entry"],
+             "prepare": results["prepare path"]}
     kernels = []
     for k in KERNELS:
         by_path = {path: counts.get(k["name"], 0)
@@ -1262,7 +1628,7 @@ def main() -> int:
                 fail(f"{k['name']} was not launched on the {path} path")
         kernels.append({**k, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **stats[k["name"]]})
-    for path in ("downscale", "streaming", "ensemble"):
+    for path in ("downscale", "streaming", "ensemble", "prepare"):
         if paths[path]["convlstm_seq"] == 0:
             fail(f"convlstm_seq was not launched on the {path} path")
     print(smi)

@@ -154,7 +154,10 @@ def test_port_imports_nothing_of_jax():
         "'train.losses', 'train.optim', 'train.state', 'train.wgan_gp', "
         "'train.checkpoint', 'train.loop', 'utils.logging', 'network', "
         "'infer.streaming', 'data', 'data.batch', 'data.decoders', "
-        "'data.noise', 'data.providers'):\n"
+        "'data.noise', 'data.providers', 'assets', 'features', "
+        "'models.autoencoder', 'ops.stencil', 'preprocess', "
+        "'preprocess.topo', 'preprocess.daily', 'preprocess.download_era5', "
+        "'preprocess.download_cosmo'):\n"
         "    assert 'windtpu_torch.' + name in sys.modules, name\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -185,17 +188,17 @@ def test_entry_points_default_to_the_card(monkeypatch, networks):
 
 
 @pytest.mark.parametrize("kwargs", [{"--num-processes": "2"},
-                                    {"--reconstruction-coefficient": "0.5"}])
+                                    {"--coordinator-address": "host:1234"}])
 def test_later_slices_raise(tmp_path, kwargs):
-    # Streaming and ensembles, which raised here before, are ported
-    # (tests/test_torch_streaming.py); what still waits for a later slice
-    # is train_main's multi-process training (A12) and the reconstruction
-    # loss (A10).
+    # Streaming, ensembles and the reconstruction loss, which raised here
+    # before, are ported (tests/test_torch_streaming.py,
+    # tests/test_torch_preprocess.py); what still waits for a later slice
+    # is train_main's multi-process training (A12).
     from windtpu_torch import cli as tcli
 
     argv = ["--inputs", "unused", "--outputs", "unused", "--synthetic",
             "--checkpoint-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[02]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tcli.train_main(argv + [a for kv in kwargs.items() for a in kv])
 
 

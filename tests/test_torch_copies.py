@@ -7,6 +7,7 @@ providers (decoders and the batch pipeline: tests/test_torch_data.py)."""
 import dataclasses
 import itertools
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -229,3 +230,54 @@ esac
     with pytest.raises(RuntimeError, match="not runnable"):
         getattr(tproviders, store)("bucket", pattern="x_{date}.nc"
                                    ).available_dates
+
+
+@pytest.mark.parametrize("name", ["assets", "preprocess.daily",
+                                  "preprocess.download_era5",
+                                  "preprocess.download_cosmo"])
+def test_module_copies_equal_their_originals_in_code(name):
+    """The port's copies of these pure-Python modules differ from their
+    originals in the module docstring and the package name only."""
+    import ast
+
+    def code(path, package):
+        tree = ast.parse(Path(path).read_text())
+        if ast.get_docstring(tree) is not None:
+            tree.body = tree.body[1:]
+        return ast.unparse(tree).replace(package, "PACKAGE")
+
+    root = Path(__file__).resolve().parents[1]
+    stem = name.replace(".", "/")
+    original = root / "windtpu" / (
+        "assets/__init__.py" if name == "assets" else f"{stem}.py")
+    copy = root / "windtpu_torch" / f"{stem}.py"
+    assert code(copy, "windtpu_torch") == code(original, "windtpu")
+
+
+def test_swiss_cosmo_grid_equal():
+    from windtpu.assets import swiss_cosmo_grid as jgrid
+    from windtpu_torch.assets import swiss_cosmo_grid as tgrid
+
+    _assert_datasets_equal(tgrid(), jgrid())
+
+
+def test_netcdf3_written_without_h5py_reads_back_in_both_packages(
+        tmp_path, monkeypatch):
+    """Where h5py is missing, the port's Dataset.to_netcdf writes NetCDF-3
+    through scipy; both packages' readers give back the values, the
+    dimension coordinates and the times, the port's reader also a 2-D
+    coordinate and native-endian arrays."""
+    era5 = _era5(tds)
+    era5["band"] = tds.DataArray(("longitude",), np.arange(7))
+    monkeypatch.setitem(sys.modules, "h5py", None)   # import h5py fails
+    era5.to_netcdf(tmp_path / "era5.nc")
+    assert (tmp_path / "era5.nc").read_bytes()[:4] == b"CDF\x02"
+    for mod in (tds, jds):
+        _assert_datasets_equal(mod.open_dataset(tmp_path / "era5.nc"), era5)
+    era5.coords["lat_2d"] = tds.DataArray(
+        ("latitude", "longitude"), np.arange(42.0).reshape(6, 7))
+    era5.to_netcdf(tmp_path / "era5_2d.nc")
+    got = tds.open_dataset(tmp_path / "era5_2d.nc")
+    _assert_datasets_equal(got, era5)
+    assert all(got[n].values.dtype.isnative
+               for n in list(got.data_vars) + list(got.coords))

@@ -133,6 +133,21 @@ def test_bilinear_upsample_half_pixel_centres():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def test_bilinear_upsample_spreads_nan_over_its_plane_as_jax():
+    """One NaN at one (b, t, c) makes that whole output plane NaN, as
+    jax.image.resize's dense contraction does, and no other plane."""
+    x = np.random.RandomState(5).standard_normal(
+        (2, 3, 6, 8, 4)).astype(np.float32)
+    x[1, 2, 4, 5, 3] = np.nan
+    want = np.asarray(JL.bilinear_upsample_2x(jnp.asarray(x)))
+    got = L.bilinear_upsample_2x(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[1, 2, :, :, 3]).all()
+    assert np.isnan(got).sum() == 12 * 16
+    m = ~np.isnan(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
 def _generator_pair(kw, flat, dtype):
     jcfg = JModelConfig(**kw, compute_dtype=dtype)
     tgen = Generator(ModelConfig(**kw, compute_dtype=dtype)).eval()

@@ -260,7 +260,7 @@ def test_load_train_state_rejects_mismatch(fault):
 
 @pytest.mark.parametrize("option", [
     {"remat": True}, {"remat": "d_only"}, {"remat_gp": True},
-    {"reconstruction_coefficient": 1.0}])
+    {"remat": "save_scans"}])
 def test_options_of_later_slices_raise(option):
     _, tcfg = configs(**option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,15 +1,22 @@
-"""Console entry points of the port.
+"""Console entry points of the port, run as ``python -m windtpu_torch.cli
+[train|prepare] ...``.
 
-``main`` (``downscale``) has the contract of ``windtpu/cli.py:main``
-(``--era --dem --date --lon --lat -o``: reads ``{date}*surface*.nc`` ERA5
-files and a GeoTIFF DEM, writes a NetCDF of downscaled u10/v10, with
-``--ensemble N`` members), plus ``--device`` (default: the card).  Run as
-``python -m windtpu_torch.cli``.
+``main`` (``downscale``, the default) has the contract of
+``windtpu/cli.py:main`` (``--era --dem --date --lon --lat -o``: reads
+``{date}*surface*.nc`` ERA5 files and a GeoTIFF DEM, writes a NetCDF of
+downscaled u10/v10, with ``--ensemble N`` members), plus ``--device``
+(default: the card).
 
-``train_main`` is ``windtpu/cli.py:train_main`` on one device: it reads
-``x_{date}.nc`` / ``y_{date}.nc`` days (or synthetic ones) through
-``data.BatchGenerator`` and trains with ``train.loop.train``.  Run as
-``python -m windtpu_torch.cli train ...``.
+``train_main`` (``train``) is ``windtpu/cli.py:train_main`` on one device:
+it reads ``x_{date}.nc`` / ``y_{date}.nc`` days (or synthetic ones)
+through ``data.BatchGenerator`` and trains with ``train.loop.train``;
+``--reconstruction-coefficient`` adds the perceptual loss.
+
+``prepare_main`` (``prepare topo|daily``) is ``windtpu/cli.py:prepare_main``:
+``topo`` turns a DEM GeoTIFF into the eight ``topo_<name>.nc`` descriptor
+files (stencils on ``--device``, default the card), ``daily`` builds the
+``x_{date}.nc`` / ``y_{date}.nc`` training days from ERA5, COSMO-1 and
+those descriptors (on the host).
 """
 
 from __future__ import annotations
@@ -94,8 +101,7 @@ def train_main(argv=None):
     parser.add_argument("--reconstruction-coefficient", type=float,
                         default=None,
                         help="perceptual reconstruction loss weight "
-                             "(default 0 = off; > 0 waits for the "
-                             "autoencoder slice, ROADMAP A10)")
+                             "(default 0 = off; uses the bundled encoder)")
     parser.add_argument("--steps-per-call", type=int, default=None,
                         help="optimizer steps per call of the step "
                              "function (K=1 default keeps per-step "
@@ -186,10 +192,48 @@ def train_main(argv=None):
     return state
 
 
+def prepare_main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Preprocess DEM + ERA5 + COSMO into daily training files")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_topo = sub.add_parser("topo", help="DEM -> topographic descriptors")
+    p_topo.add_argument("--dem", required=True)
+    p_topo.add_argument("--device", default=None,
+                        help="torch device of the stencils (default: cuda; "
+                             "'cpu' to run on the CPU)")
+
+    p_daily = sub.add_parser("daily", help="build daily x_/y_ NetCDF files")
+    p_daily.add_argument("--processed", required=True)
+    p_daily.add_argument("--era5", required=True)
+    p_daily.add_argument("--cosmo", required=True)
+    p_daily.add_argument("--dem-dir", required=True)
+    p_daily.add_argument("--start", required=True)
+    p_daily.add_argument("--end", required=True)
+    p_daily.add_argument("--blurred", action="store_true",
+                         help="COSMO-blurred self-downscaling variant")
+
+    args = parser.parse_args(argv)
+    from windtpu_torch.preprocess import daily, topo
+
+    if args.cmd == "topo":
+        from windtpu_torch.core.device import resolve_device
+
+        topo.process_topographic_variables_file(
+            args.dem, device=resolve_device(args.device))
+    elif args.blurred:
+        daily.process_imgs_cosmoblurred(
+            args.processed, args.cosmo, args.dem_dir, args.start, args.end)
+    else:
+        daily.process_imgs(args.processed, args.era5, args.cosmo,
+                           args.dem_dir, args.start, args.end)
+
+
 if __name__ == "__main__":
     import sys
 
-    if sys.argv[1:2] == ["train"]:
-        train_main(sys.argv[2:])
+    commands = {"train": train_main, "prepare": prepare_main}
+    if sys.argv[1:2] and sys.argv[1] in commands:
+        commands[sys.argv[1]](sys.argv[2:])
     else:
         main()

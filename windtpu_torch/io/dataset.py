@@ -237,8 +237,16 @@ class Dataset:
 
     # -- NetCDF ---------------------------------------------------------------
     def to_netcdf(self, path: Union[str, os.PathLike]):
-        """Write NetCDF-4 (HDF5 with dimension scales), xarray-compatible."""
-        import h5py
+        """Write NetCDF-4 (HDF5 with dimension scales), xarray-compatible.
+
+        Port only: where h5py is not installed, write NetCDF-3 (64-bit
+        offset) through scipy instead (:meth:`_to_netcdf3`), which this
+        module's and the JAX package's readers read alike."""
+        try:
+            import h5py
+        except ImportError:
+            self._to_netcdf3(path)
+            return
 
         with h5py.File(path, "w") as f:
             # Dimension coordinate variables first (as dimension scales).
@@ -268,6 +276,42 @@ class Dataset:
                     f.attrs[ak] = av
                 except TypeError:
                     f.attrs[ak] = str(av)
+
+    def _to_netcdf3(self, path: Union[str, os.PathLike]):
+        """NetCDF-3 (64-bit offset) through ``scipy.io.netcdf_file``.  The
+        format has no 64-bit integers: integers that fit in 32 bits are
+        stored so (times as seconds since 1970 do until 2038), others as
+        float64.  A coordinate that is not a dimension coordinate (the
+        2-D ``lat_1`` of a COSMO-1 file) is marked as the HDF5 path marks
+        it, with ``_windtpu_coord``, which this module's reader honours."""
+        from scipy.io import netcdf_file
+
+        with netcdf_file(path, "w", version=2) as f:
+            for name, size in self._sizes.items():
+                f.createDimension(name, size)
+            for name, var in {**self.coords, **self.data_vars}.items():
+                data, attrs = _encode_var(var)
+                if data.dtype.kind in "SU":
+                    raise ValueError(f"{name}: NetCDF-3 output holds no "
+                                     f"strings")
+                if data.dtype.kind in "iub" and data.dtype.itemsize >= 4:
+                    info = np.iinfo(np.int32)
+                    fits = data.size == 0 or (
+                        data.min() >= info.min and data.max() <= info.max)
+                    data = data.astype(np.int32 if fits else np.float64)
+                out = f.createVariable(name, data.dtype, var.dims)
+                if var.dims:
+                    out[...] = data
+                else:
+                    out.assignValue(data)
+                for ak, av in attrs.items():
+                    setattr(out, ak, av)
+                if name in self.coords and var.dims != (name,):
+                    out._windtpu_coord = np.int8(1)
+            f.Conventions = "CF-1.7"
+            for ak, av in self.attrs.items():
+                setattr(f, ak, av if isinstance(av, (int, float, np.ndarray))
+                        else str(av))
 
 
 def nearest_indices(grid: np.ndarray, want: np.ndarray) -> np.ndarray:
@@ -417,9 +461,13 @@ def _open_nc3(path) -> Dataset:
         data_vars = {}
         for name, var in f.variables.items():
             attrs = {k: v for k, v in var._attributes.items()}
-            vals = _apply_cf(var[...].copy(), attrs)
+            # NetCDF-3 is big-endian on disk; hand on native arrays, which
+            # torch.from_numpy takes.
+            raw = var[...]
+            vals = _apply_cf(raw.astype(raw.dtype.newbyteorder("=")), attrs)
+            is_coord = bool(attrs.pop("_windtpu_coord", False))
             arr = DataArray(tuple(var.dimensions), vals, attrs)
-            if name in f.dimensions:
+            if name in f.dimensions or is_coord:
                 coords[name] = arr
             else:
                 data_vars[name] = arr

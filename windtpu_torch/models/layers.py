@@ -528,8 +528,19 @@ def bilinear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Keras UpSampling2D(size=2, interpolation='bilinear') on
     (B, T, H, W, C), half-pixel centres.  CUDA's channels-last kernel
     takes outputs under 2^31 elements, so a larger batch (an ensemble's
-    members x patches) is upsampled in slices of frames."""
-    folded = _fold(x).permute(0, 3, 1, 2)
+    members x patches) is upsampled in slices of frames.
+
+    NaN spreads as in the JAX package, whose ``jax.image.resize``
+    contracts each plane with dense weight matrices: a NaN anywhere in a
+    (b, t, c) plane of the input makes that whole output plane NaN.  The
+    port fills the input's plane with NaN first: one max per plane, which
+    propagates NaN, and one fill of the input, a quarter of the output's
+    size.  An inf is not matched: JAX turns its plane into a mix of inf
+    and NaN, the port leaves it local; the reference data has no inf."""
+    folded = _fold(x)
+    folded = folded.masked_fill(
+        torch.isnan(folded.amax(dim=(1, 2), keepdim=True)), float("nan"))
+    folded = folded.permute(0, 3, 1, 2)
     per_frame = 4 * folded[0].numel()
     step = max(1, (2 ** 31 - 1) // per_frame)
     parts = [F.interpolate(folded[i:i + step], scale_factor=2,

@@ -10,6 +10,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from windtpu_torch.core.config import GANConfig
+from windtpu_torch.features import get_encoder_fn
 from windtpu_torch.train import checkpoint as ckpt
 from windtpu_torch.train.state import GANTrainState, create_train_state
 from windtpu_torch.train.wgan_gp import make_multi_train_step, make_train_step
@@ -36,7 +37,10 @@ def train(
     steps and at the end, and the logged metrics go to ``metrics.jsonl``
     beside them.  ``TrainConfig.steps_per_call`` = K runs K steps per call
     and reports the last one's metrics; a remainder runs step by step.
-    ``profile_dir`` gets a ``torch.profiler`` trace of calls 2 and 3."""
+    ``TrainConfig.reconstruction_coefficient > 0`` adds the perceptual
+    loss through :func:`windtpu_torch.features.get_encoder_fn` at the
+    model's image size and sequence length.  ``profile_dir`` gets a
+    ``torch.profiler`` trace of calls 2 and 3."""
     if state is None:
         state = create_train_state(cfg, device=device)
     metrics_logger = None
@@ -48,9 +52,17 @@ def train(
         metrics_logger = MetricsLogger(
             f"{cfg.checkpoint_dir}/metrics.jsonl")
 
+    # The perceptual reconstruction loss: its encoder (checkpointed,
+    # bundled or random, features.get_encoder_fn) on the state's device.
+    feature_fn = None
+    if cfg.train.reconstruction_coefficient > 0:
+        feature_fn = get_encoder_fn(cfg.model.image_size,
+                                    cfg.model.sequence_length,
+                                    device=state.device)
     k = max(1, cfg.train.steps_per_call)
-    single_fn = make_train_step(cfg)
-    multi_fn = make_multi_train_step(cfg, k) if k > 1 else single_fn
+    single_fn = make_train_step(cfg, feature_fn=feature_fn)
+    multi_fn = (make_multi_train_step(cfg, k, feature_fn=feature_fn)
+                if k > 1 else single_fn)
     rng = torch.Generator(device=state.device).manual_seed(cfg.seed + 1)
     history = []
     it = iter(batches)

@@ -1,5 +1,5 @@
-"""WGAN-GP losses (counterpart of ``windtpu/train/losses.py``).  The
-perceptual reconstruction loss comes with the autoencoder slice."""
+"""WGAN-GP losses and the perceptual reconstruction loss (counterpart of
+``windtpu/train/losses.py``)."""
 
 from __future__ import annotations
 
@@ -79,3 +79,22 @@ def highpass_energy_ratio_loss(fake: torch.Tensor, truth: torch.Tensor,
     log_ratio = (torch.log(hp_f + floor + eps)
                  - torch.log(hp_t + floor + eps))
     return torch.mean(log_ratio ** 2)
+
+
+class reconstruction_loss:
+    """Perceptual feature-space loss:
+    ``coefficient * E[ ||enc(low_res_uv) - enc(high_res)||_2 ]``, the norm
+    over the feature axis, the mean over (B, T)."""
+
+    def __init__(self, feature_extractor: Callable[[torch.Tensor],
+                                                   torch.Tensor],
+                 coefficient: float = 1.0):
+        self.feature_extractor = feature_extractor
+        self.coefficient = coefficient
+
+    def __call__(self, low_res_uv: torch.Tensor,
+                 high_res: torch.Tensor) -> torch.Tensor:
+        delta = (self.feature_extractor(low_res_uv)
+                 - self.feature_extractor(high_res))
+        return self.coefficient * torch.mean(
+            torch.sqrt(torch.sum(delta ** 2, dim=-1)))

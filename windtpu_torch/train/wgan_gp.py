@@ -27,7 +27,7 @@ updated network's parameters only; ``.grad`` fields are never filled.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +39,7 @@ from windtpu_torch.train.losses import (
     generator_adversarial_loss,
     gradient_penalty_from_grads,
     highpass_energy_ratio_loss,
+    reconstruction_loss,
 )
 from windtpu_torch.train.state import GANTrainState
 
@@ -93,11 +94,6 @@ def check_ported(tcfg: TrainConfig) -> None:
         raise NotImplementedError(
             "TrainConfig.remat / remat_gp: the rematerialization modes are "
             "not ported yet (ROADMAP A13)")
-    if tcfg.reconstruction_coefficient > 0:
-        raise NotImplementedError(
-            "TrainConfig.reconstruction_coefficient > 0: the perceptual "
-            "reconstruction loss comes with the autoencoder slice "
-            "(ROADMAP A10)")
 
 
 def _grads_or_zeros(loss: torch.Tensor,
@@ -143,14 +139,29 @@ def _generator_metrics(high_res: torch.Tensor,
     }
 
 
-def make_train_step(cfg: GANConfig, detach_gp: Optional[bool] = None):
+FeatureFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
+                    detach_gp: Optional[bool] = None):
     """Build ``step(state, low_res, high_res, rng=None, *, draws=None) ->
     (state, metrics)``.  ``state`` is updated in place.  The step draws its
     random numbers from ``rng`` (a ``torch.Generator``) unless ``draws``
     (a :class:`StepDraws`) hands them in.  ``metrics`` maps the JAX
-    package's metric names to 0-d tensors on the state's device."""
+    package's metric names to 0-d tensors on the state's device.
+
+    ``feature_fn`` maps a (B, T, H, W, 2) field to (B, T, latent)
+    perceptual features (:func:`windtpu_torch.features.get_encoder_fn`);
+    with it and ``reconstruction_coefficient > 0`` the generator loss adds
+    the reconstruction loss of ``low_res[..., :2]`` against the fake, and
+    reports it as ``g_reco_loss``.  Without it the loss is off, as in the
+    JAX step."""
     tcfg = cfg.train
     check_ported(tcfg)
+    reco_fn = (reconstruction_loss(feature_fn,
+                                   tcfg.reconstruction_coefficient)
+               if feature_fn is not None
+               and tcfg.reconstruction_coefficient > 0 else None)
     detach = tcfg.detach_gp if detach_gp is None else detach_gp
     std = tcfg.noise_std
 
@@ -203,28 +214,30 @@ def make_train_step(cfg: GANConfig, detach_gp: Optional[bool] = None):
 
         # ---- generator update ------------------------------------------
         fake = gen(low_res, std * draws.gen_noise, train=True)
-        g_adv = g_sharp = zero
+        g_adv = g_reco = g_sharp = zero
         if tcfg.adversarial_coefficient > 0:   # 0 removes the critic call
             scores = critic(low_res, fake, train=True)
             g_adv = (tcfg.adversarial_coefficient
                      * generator_adversarial_loss(scores))
+        if reco_fn is not None:
+            g_reco = reco_fn(low_res[..., :2], fake)
         if tcfg.sharpness_coefficient > 0:
             g_sharp = tcfg.sharpness_coefficient * highpass_energy_ratio_loss(
                 fake, high_res, sigma=tcfg.sharpness_sigma)
-        g_loss = g_adv + g_sharp
+        g_loss = g_adv + g_reco + g_sharp
         g_grads = _grads_or_zeros(g_loss, g_params)
         state.g_opt.step(g_grads)
 
         metrics = {
             "g_loss": g_loss.detach(),
             "g_disc_loss": g_adv.detach(),
-            "g_reco_loss": zero,
+            "g_reco_loss": g_reco.detach(),
             "g_sharp_loss": g_sharp.detach(),
             "d_gradient_pen": gp_mean_norm,
             "g_gradient_param": _tensor_mean_sq(g_grads),
             "d_gradient_param": d_grad_diag,
         }
-        del fake, g_loss, g_adv, g_sharp, g_grads
+        del fake, g_loss, g_adv, g_reco, g_sharp, g_grads
 
         # ---- metric recompute, train=False, on the updated parameters --
         if tcfg.compute_metrics:
@@ -249,11 +262,12 @@ def make_train_step(cfg: GANConfig, detach_gp: Optional[bool] = None):
 
 
 def make_multi_train_step(cfg: GANConfig, steps_per_call: int,
+                          feature_fn: Optional[FeatureFn] = None,
                           detach_gp: Optional[bool] = None):
     """``(state, low_res_k, high_res_k, rng) -> (state, metrics)`` where the
     batch arguments are length-K sequences; K steps run and the metrics are
     those of the LAST one."""
-    inner = make_train_step(cfg, detach_gp=detach_gp)
+    inner = make_train_step(cfg, feature_fn=feature_fn, detach_gp=detach_gp)
     if steps_per_call <= 1:
         return inner
 

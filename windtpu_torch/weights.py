@@ -83,6 +83,30 @@ def load_generator_npz(path, module: nn.Module) -> nn.Module:
     return load_flax_variables(module, flat)
 
 
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    """A nested dict of arrays as a flat dict with '/'-joined keys."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def load_autoencoder_npz(source, module: nn.Module) -> nn.Module:
+    """Load autoencoder weights into the port's ``AutoEncoder`` in place.
+
+    ``source`` is a ``save_generator_npz`` file of a flax autoencoder
+    (e.g. the bundled ``windtpu/assets/weights/autoencoder-synth.npz``),
+    its flat dict, or a JAX model's variables as a nested dict of numpy
+    arrays.  Raises ``ValueError`` on a missing, extra or misshapen key,
+    as :func:`load_flax_variables` does."""
+    if isinstance(source, Mapping):
+        return load_flax_variables(module, _flatten(source))
+    return load_generator_npz(source, module)
+
 def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
     """A numpy copy that does not alias the live tensor."""
     return tensor.detach().cpu().numpy().copy()
