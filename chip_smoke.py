@@ -56,7 +56,20 @@ Phases, each of which ends the script with a nonzero exit on failure:
     ``--reconstruction-coefficient 1.0`` at 96 px, T=24, batch 2 (where the
     bundled encoder loads, which it checks), seconds per step, peak memory
     and K1's launches;
-11. one JSON line with the kernels, then the result line.
+11. multi-GPU path (the card has one H100, and NCCL refuses two ranks on
+    one card, so two ranks share it under gloo: these runs test
+    correctness, not speed): (i) ``cli.train_main`` with
+    ``--coordinator-address/--num-processes 1/--process-id 0`` over NCCL
+    at the train entry's shape, 2 steps, against a plain single-process
+    ``train_main``; (ii) the same at 2 gloo ranks on ``cuda:0``: ranks
+    with identical state, within a stated limit of the single process,
+    K1 and K2 launched in each rank; (iii) 2 gloo ranks on ``cuda:0``
+    running the flagship ``api.downscale`` tile-parallel (against the
+    single-device run with the same seed, within the streaming phase's
+    bf16 limit) and a 2-member ensemble over an ``ensemble`` axis of 2
+    (against the one-member runs of its seeds, exactly).  Each rank's
+    seconds, peak memory, launches and all-reduce bytes;
+12. one JSON line with the kernels, then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -144,6 +157,8 @@ THRESHOLD_DOMAINS = [(836, 836, 1), (2048, 2048, 1), (4096, 4096, 1),
 THRESHOLD_SHARE = 0.5
 # train_main's default shape and the steps of its two timed runs.
 TRAIN_MAIN_STEPS = (2, 6)
+TRAIN_ENTRY_ARGV = ["--inputs", "unused", "--outputs", "unused",
+                    "--synthetic", "--spatial-ks"]
 # The reconstruction loss's weight in the training reference and on the
 # prepare path (the JAX CLI's --reconstruction-coefficient 1.0).
 RECO_COEFFICIENT = 1.0
@@ -156,6 +171,21 @@ DEM_HOLES = 40
 PREPARE_DAYS = ("2020-01-01", "2020-01-02")
 PREPARE_TRAIN_STEPS = (2, 4)
 TOPO_M_TOL, TOPO_DERIVATIVE_TOL = 1e-3, 1e-5
+# The multi-GPU path: train_main at its default shape with the spatial KS,
+# 2 steps per run.  Ranks hold identical states (all-reduced gradients and
+# BatchNorm statistics, the same optimizer arithmetic).  A run over ranks
+# against the single process: f32, but the card's own run-to-run spread
+# bounds the agreement: two identical single-process runs on the H100
+# 80GB HBM3 (700 W) differed by up to 7.0e-5 in the parameters, BatchNorm
+# statistics and spectral vectors and by 3.5e-2 in Adam's moments relative
+# to each tensor's largest entry, the ranks against one process by 5.5e-5
+# and 3.8e-2 (cuDNN's backward kernels sum in no fixed order, and the
+# critic's kinks pass that on to its gradients).  The limits sit above
+# both, and far below a wrong reduction (a sum where a mean belongs moves
+# a moment by its own size).
+MULTI_STEPS = 2
+MULTI_TRAIN_TOL, MULTI_MOMENT_TOL = 2e-4, 0.1
+MULTI_TIMEOUT = 600
 
 KERNELS = [{
     "name": "convlstm_seq",
@@ -1215,10 +1245,8 @@ def train_entry_phase() -> dict:
     def run(steps: int):
         directory = ckpt_root / str(steps)
         shutil.rmtree(directory, ignore_errors=True)
-        return cli.train_main([
-            "--inputs", "unused", "--outputs", "unused", "--synthetic",
-            "--checkpoint-dir", str(directory), "--steps", str(steps),
-            "--spatial-ks"])
+        return cli.train_main(TRAIN_ENTRY_ARGV + [
+            "--checkpoint-dir", str(directory), "--steps", str(steps)])
 
     run(1)                                               # warm-up
     walls = {}
@@ -1512,6 +1540,220 @@ def prepare_path_phase() -> dict:
     return counts
 
 
+def run_ranks(job: str, world: int, backend: str, out: Path) -> list:
+    """Start ``world`` rank processes of this script on the card (``--rank
+    job ...``), joined over a free local port with ``backend``; wait for
+    them, stop them all if one fails, and return their reports."""
+    from windtpu_torch.utils.hostcpu import free_tcp_port
+
+    out.mkdir(parents=True, exist_ok=True)
+    port = free_tcp_port()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", job,
+         str(r), str(world), str(port), str(out), backend],
+        stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(world)]
+    deadline = time.monotonic() + MULTI_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.returncode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out / f"rank{r}.log").read_text()[-3000:]
+            fail(f"{job} rank {r} of {world} ({backend}) exited with "
+                 f"{p.returncode}:\n{tail}")
+    return [json.loads((out / f"report{r}.json").read_text())
+            for r in range(world)]
+
+
+def rank_main(job: str, rank: int, world: int, port: str, out: Path,
+              backend: str) -> int:
+    """One rank of the multi-GPU phase: ``train`` runs ``cli.train_main``
+    with the coordinator flags, ``downscale`` runs the flagship
+    ``api.downscale`` on a mesh; both write ``report<rank>.json`` and their
+    results into ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from windtpu_torch.core.mesh import all_reduce
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.ops.ks import spatial_ks
+
+    report = {"rank": rank}
+    if job == "train":
+        from windtpu_torch import cli
+        from windtpu_torch.weights import export_train_state
+
+        t0 = time.perf_counter()
+        state = cli.train_main(TRAIN_ENTRY_ARGV + [
+            "--steps", str(MULTI_STEPS), "--checkpoint-dir",
+            str(out / f"ck{rank}"), "--coordinator-address",
+            f"localhost:{port}", "--num-processes", str(world),
+            "--process-id", str(rank), "--backend", backend])
+        torch.cuda.synchronize()
+        report.update(
+            seconds=time.perf_counter() - t0, device=str(state.device),
+            backend=dist.get_backend(), k1=convlstm_seq.launches,
+            k2=spatial_ks.launches,
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+            all_reduce_bytes_per_step=all_reduce.bytes / MULTI_STEPS)
+        np.savez(out / f"state{rank}.npz", **export_train_state(state))
+    else:
+        from windtpu_torch import api
+        from windtpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(f"localhost:{port}", world, rank,
+                               backend=backend)
+        era5, raster = era5_and_dem(21, 42, 24, seed=0)
+        network = api.get_network()
+        api.downscale(era5, raster, network=network)  # warm-up
+        for name, members in (("tile", 1), ("ensemble", 2)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            convlstm_seq.launches = all_reduce.bytes = 0
+            t0 = time.perf_counter()
+            res = api.downscale(era5, raster, network=network, seed=0,
+                                ensemble_members=members)
+            torch.cuda.synchronize()
+            report[name] = dict(
+                seconds=time.perf_counter() - t0, k1=convlstm_seq.launches,
+                peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                all_reduce_bytes=all_reduce.bytes,
+                info=api.last_run_info(), device=str(network.device))
+            np.savez(out / f"{name}{rank}.npz", u10=res["u10"].values,
+                     v10=res["v10"].values)
+    (out / f"report{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def state_errors(got: dict, want: dict):
+    """Two (error, key) pairs between flat train states: max |got - want|
+    over the parameters, BatchNorm statistics, spectral vectors and
+    counts; and over Adam's moments, relative to each tensor's largest
+    |entry|."""
+    if sorted(got) != sorted(want):
+        fail("the two train states have different keys")
+    model, moments = (0.0, ""), (0.0, "")
+    for k, w in want.items():
+        e = float(np.abs(got[k] - w).max())
+        if "_opt/mu/" in k or "_opt/nu/" in k:
+            moments = max(moments, (e / max(1.0, float(np.abs(w).max())), k))
+        else:
+            model = max(model, (e, k))
+    return model, moments
+
+
+def multi_gpu_phase() -> dict:
+    from windtpu_torch import api, cli
+    from windtpu_torch.weights import export_train_state
+
+    work = ROOT / "build" / "chip_smoke_multi_gpu"
+    shutil.rmtree(work, ignore_errors=True)
+    print("two ranks share the one card under gloo (NCCL refuses two ranks "
+          "on one card): these runs test correctness, not speed; no "
+          "multi-card number exists")
+    plain, again = (export_train_state(cli.train_main(TRAIN_ENTRY_ARGV + [
+        "--steps", str(MULTI_STEPS), "--checkpoint-dir",
+        str(work / f"plain{i}")])) for i in range(2))
+    (err, key), (m_err, m_key) = state_errors(again, plain)
+    print(f"train_main, one process, run 2 vs run 1 (the card's run-to-run "
+          f"spread): max_abs_err {err:.3e} at {key}, Adam's moments "
+          f"{m_err:.3e} at {m_key}")
+    counts = {"convlstm_seq": 0, "spatial_ks": 0}
+    seq = 6
+    for name, world, backend in (("nccl", 1, "nccl"),
+                                 ("gloo_train", 2, "gloo")):
+        reports = run_ranks("train", world, backend, work / name)
+        states = [dict(np.load(work / name / f"state{r}.npz"))
+                  for r in range(world)]
+        for rep in reports:
+            print(f"train_main {backend} rank {rep['rank']} of {world} on "
+                  f"{rep['device']} ({rep['backend']}), batch 16 / {world}"
+                  f" per rank, {MULTI_STEPS} steps: {rep['seconds']:.3f} s "
+                  f"(process set-up included), peak memory allocated "
+                  f"{rep['peak_mib']:.0f} MiB, convlstm_seq {rep['k1']}, "
+                  f"spatial_ks {rep['k2']}, all-reduce "
+                  f"{rep['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
+                  f"step")
+            if rep["k1"] != 5 * seq * MULTI_STEPS or rep["k2"] != MULTI_STEPS:
+                fail(f"train_main {backend} rank {rep['rank']}: "
+                     f"convlstm_seq {rep['k1']} (expected "
+                     f"{5 * seq * MULTI_STEPS}), spatial_ks {rep['k2']} "
+                     f"(expected {MULTI_STEPS})")
+            counts["convlstm_seq"] += rep["k1"]
+            counts["spatial_ks"] += rep["k2"]
+        for r in range(1, world):
+            (err, _), (m_err, _) = state_errors(states[r], states[0])
+            print(f"train_main {backend}: rank {r} vs rank 0 max_abs_err "
+                  f"{err:.3e}, Adam's moments {m_err:.3e} (tol 0)")
+            if err != 0.0 or m_err != 0.0:
+                fail(f"train_main {backend}: the ranks' states differ")
+        (err, key), (m_err, m_key) = state_errors(states[0], plain)
+        print(f"train_main {backend} at {world} rank(s) vs one process: "
+              f"max_abs_err {err:.3e} at {key} (tol {MULTI_TRAIN_TOL:.0e}), "
+              f"Adam's moments {m_err:.3e} at {m_key} (tol "
+              f"{MULTI_MOMENT_TOL:.0e})")
+        if not (err <= MULTI_TRAIN_TOL and m_err <= MULTI_MOMENT_TOL):
+            fail(f"train_main {backend} at {world} rank(s) disagrees with "
+                 f"the single process")
+
+    reports = run_ranks("downscale", 2, "gloo", work / "downscale")
+    era5, raster = era5_and_dem(21, 42, 24, seed=0)
+    network = api.get_network()
+    want = {"tile": [api.downscale(era5, raster, network=network, seed=0)],
+            "ensemble": [api.downscale(era5, raster, network=network,
+                                       seed=s)
+                         for s in api.member_seeds(0, 2)]}
+    modes = {"tile": ("tile", {"data": 2}), "ensemble": ("ensemble",
+                                                         {"ensemble": 2})}
+    for name in ("tile", "ensemble"):
+        for rep in reports:
+            r = rep[name]
+            print(f"downscale {name} rank {rep['rank']} of 2 on "
+                  f"{r['device']} (gloo): {r['seconds']:.3f} s, peak device "
+                  f"memory above the weights {r['peak_mib']:.1f} MiB, "
+                  f"convlstm_seq {r['k1']}, all-reduce "
+                  f"{r['all_reduce_bytes'] / 2**20:.1f} MiB, {r['info']}")
+            mode, axes = modes[name]
+            if (r["info"]["mode"] != mode or r["info"]["mesh_axes"] != axes
+                    or r["k1"] != (2 if name == "tile" else 4) * 24):
+                fail(f"downscale {name} rank {rep['rank']} ran "
+                     f"{r['info']} with {r['k1']} convlstm_seq launches")
+            counts["convlstm_seq"] += r["k1"]
+        got = [dict(np.load(work / "downscale" / f"{name}{r}.npz"))
+               for r in range(2)]
+        for var in ("u10", "v10"):
+            if not np.array_equal(got[0][var], got[1][var], equal_nan=True):
+                fail(f"downscale {name}: the ranks' {var} differ")
+            for m, w in enumerate(want[name]):
+                g = got[0][var] if name == "tile" else got[0][var][m]
+                w = w[var].values
+                if name == "tile":
+                    compare(f"bf16 downscale {var}, 2 ranks tile-parallel "
+                            f"vs one device", g, w,
+                            STREAM_BF16_REL * float(np.nanmax(np.abs(w))),
+                            mean_tol=STREAM_BF16_MEAN_TOL)
+                else:
+                    compare(f"bf16 downscale {var}, member {m} over the "
+                            f"ensemble axis vs its one-member run", g, w,
+                            MEMBER_TOL)
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -1573,6 +1815,7 @@ PHASES = {
     "streaming path": streaming_path_phase,
     "train entry": train_entry_phase,
     "prepare path": prepare_path_phase,
+    "multi-GPU path": multi_gpu_phase,
 }
 
 
@@ -1589,6 +1832,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--rank"]:          # a rank of the multi-GPU phase
+        job, rank, world, port, out, backend = sys.argv[2:8]
+        return rank_main(job, int(rank), int(world), port, Path(out),
+                         backend)
 
     chosen = sys.argv[1:]
     unknown = sorted(set(chosen) - set(PHASES))
@@ -1618,12 +1865,13 @@ def main() -> int:
              "streaming": {"convlstm_seq": streamed["streaming"]},
              "ensemble": {"convlstm_seq": streamed["ensemble"]},
              "train_main": results["train entry"],
-             "prepare": results["prepare path"]}
+             "prepare": results["prepare path"],
+             "multi_gpu": results["multi-GPU path"]}
     kernels = []
     for k in KERNELS:
         by_path = {path: counts.get(k["name"], 0)
                    for path, counts in paths.items()}
-        for path in ("train", "train_main"):
+        for path in ("train", "train_main", "multi_gpu"):
             if by_path[path] == 0:
                 fail(f"{k['name']} was not launched on the {path} path")
         kernels.append({**k, "launches": sum(by_path.values()),

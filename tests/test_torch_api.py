@@ -157,7 +157,8 @@ def test_port_imports_nothing_of_jax():
         "'data.noise', 'data.providers', 'assets', 'features', "
         "'models.autoencoder', 'ops.stencil', 'preprocess', "
         "'preprocess.topo', 'preprocess.daily', 'preprocess.download_era5', "
-        "'preprocess.download_cosmo'):\n"
+        "'preprocess.download_cosmo', 'core.mesh', 'parallel', "
+        "'parallel.distributed', 'parallel.shard_step', 'utils.hostcpu'):\n"
         "    assert 'windtpu_torch.' + name in sys.modules, name\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -190,16 +191,45 @@ def test_entry_points_default_to_the_card(monkeypatch, networks):
 @pytest.mark.parametrize("kwargs", [{"--num-processes": "2"},
                                     {"--coordinator-address": "host:1234"}])
 def test_later_slices_raise(tmp_path, kwargs):
-    # Streaming, ensembles and the reconstruction loss, which raised here
-    # before, are ported (tests/test_torch_streaming.py,
-    # tests/test_torch_preprocess.py); what still waits for a later slice
-    # is train_main's multi-process training (A12).
+    # Streaming, ensembles, the reconstruction loss and multi-process
+    # training (A12), which raised here before, are ported
+    # (tests/test_torch_streaming.py, tests/test_torch_preprocess.py,
+    # tests/test_torch_multiprocess.py).  An incomplete set of coordinator
+    # flags raises, naming what is missing, before any process group.
     from windtpu_torch import cli as tcli
 
     argv = ["--inputs", "unused", "--outputs", "unused", "--synthetic",
             "--checkpoint-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="--process-id"):
         tcli.train_main(argv + [a for kv in kwargs.items() for a in kv])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("layout", ["step_dir", "dir_of_steps", "env"])
+def test_orbax_checkpoint_as_weights_names_the_export_route(
+        tmp_path, monkeypatch, capsys, layout):
+    """A JAX (orbax) checkpoint directory given as the weights (what
+    ``cli.main --weights`` and $WINDTPU_WEIGHTS reach through
+    ``api.get_network``) raises an error that says the port cannot read
+    orbax and names the export route; ``--weights``'s help says what it
+    takes."""
+    from windtpu_torch import cli as tcli
+
+    step = tmp_path / "ckpt" / "step_00000010"
+    (step / "default").mkdir(parents=True)
+    (step / "default" / "_METADATA").write_text("{}")
+    weights = str(step if layout == "step_dir" else tmp_path / "ckpt")
+    monkeypatch.setattr(tapi, "flagship_config",
+                        lambda: GANConfig(model=ModelConfig(**TINY)))
+    if layout == "env":
+        monkeypatch.setenv(tapi.WEIGHTS_ENV, weights)
+        weights = None
+    with pytest.raises(ValueError, match="orbax checkpoint.*cannot read"
+                       ".*windtpu.train.checkpoint.save_generator_npz"):
+        tapi.get_network(weights, device="cpu")
+    with pytest.raises(SystemExit):
+        tcli.main(["--help"])
+    assert "step_*.pt" in " ".join(capsys.readouterr().out.split())
 
 
 @pytest.mark.slow

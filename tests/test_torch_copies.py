@@ -281,3 +281,24 @@ def test_netcdf3_written_without_h5py_reads_back_in_both_packages(
     _assert_datasets_equal(got, era5)
     assert all(got[n].values.dtype.isnative
                for n in list(got.data_vars) + list(got.coords))
+
+
+def test_free_tcp_port_copy_equals_its_original():
+    """``windtpu_torch.utils.hostcpu.free_tcp_port`` is the JAX package's,
+    but for its docstring; both hand out a port that can be bound."""
+    import ast
+    import inspect
+    import socket
+
+    from windtpu.utils import hostcpu as jhostcpu
+    from windtpu_torch.utils import hostcpu as thostcpu
+
+    def body(fn):
+        tree = ast.parse(inspect.getsource(fn)).body[0]
+        tree.body = tree.body[1:]          # the docstring
+        return ast.dump(tree)
+
+    assert body(thostcpu.free_tcp_port) == body(jhostcpu.free_tcp_port)
+    for fn in (thostcpu.free_tcp_port, jhostcpu.free_tcp_port):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", fn()))

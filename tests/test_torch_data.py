@@ -219,9 +219,28 @@ def test_device_iterator_on_the_cpu():
 
 
 def test_device_iterator_later_slices_raise(monkeypatch):
+    # The multi-GPU slice (A12) is ported: with a mesh, each rank takes its
+    # contiguous rows of the global batch, as the JAX package's
+    # as_device_iterator(mesh) does; what still raises is the card that is
+    # not there.
+    from windtpu_torch.core.mesh import Mesh
+
+    want = _take(_generators(seed=4)[1], 2)
+    for rank in range(2):
+        mesh = Mesh(("data", "ensemble"), (2, 1), (rank, 0), {})
+        it = _generators(seed=4)[1].as_device_iterator(device="cpu",
+                                                       mesh=mesh)
+        for wx, wy in want:
+            x, y = next(it)
+            per = wx.shape[0] // 2
+            np.testing.assert_array_equal(
+                x.numpy(), wx[rank * per:(rank + 1) * per])
+            np.testing.assert_array_equal(
+                y.numpy(), wy[rank * per:(rank + 1) * per])
     _, bg = _generators()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        next(bg.as_device_iterator(device="cpu", mesh=object()))
+    odd = Mesh(("data",), (3,), (0,), {})
+    with pytest.raises(ValueError, match="not divisible"):
+        next(bg.as_device_iterator(device="cpu", mesh=odd))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(bg.as_device_iterator())
@@ -261,9 +280,10 @@ def test_train_main_reads_netcdf_days(tmp_path):
 @pytest.mark.parametrize("flag", [["--coordinator-address", "h:1"],
                                   ["--process-id", "0"]])
 def test_train_main_later_slices_raise(tmp_path, flag):
-    # --num-processes and --reconstruction-coefficient (A10):
-    # tests/test_torch_api.py::test_later_slices_raise.
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    # Multi-process training (A12) is ported: one coordinator flag alone
+    # now names the ones missing, before anything is read or written.
+    # Two processes: tests/test_torch_multiprocess.py.
+    with pytest.raises(ValueError, match="--num-processes"):
         tcli.train_main(TRAIN_ARGS + ["--checkpoint-dir", str(tmp_path)]
                         + flag)
     assert not (tmp_path / "metrics.jsonl").exists()

@@ -1,0 +1,344 @@
+"""The port's data-parallel training (windtpu_torch/core/mesh.py,
+parallel/, train/wgan_gp.py with a mesh) against the JAX package's, with
+two real rank processes joined by gloo on the CPU (tests/torch_ranks.py).
+
+From the same perturbed state, batches and draws, over two steps:
+
+* the shard_map step (``make_sharded_train_step``): each rank gets its
+  shard's JAX draws, ``fold_in(fold_in(key, step), axis_index)``, and the
+  ranks match JAX's ``make_sharded_train_step`` on a 2-device mesh at the
+  tolerances of tests/test_torch_train.py;
+* the global-batch step (``make_train_step(cfg, mesh=mesh)``): the ranks
+  hold identical parameters, equal to the port's single-process step on
+  the whole batch and to JAX's ``make_train_step`` under sharded ``jit``.
+
+The rank processes start once, while the JAX side compiles here.  The mesh
+rules are checked against JAX's for worlds 1 to 8 without processes.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from tests import torch_ranks
+from tests.test_torch_autoencoder import _jax_state
+from tests.test_torch_train import (_STATE_FIELDS, assert_metrics_close,
+                                    assert_states_close, batch, configs,
+                                    jax_draws)
+from windtpu.api import inference_mesh as j_inference_mesh
+from windtpu.core.mesh import make_mesh as j_make_mesh
+from windtpu.parallel import make_sharded_train_step as j_sharded_step
+from windtpu.train import make_train_step as j_make_train_step
+from windtpu_torch import api as tapi
+from windtpu_torch.core import mesh as tmesh
+from windtpu_torch.metrics.metrics import extreme_weighted_rmse
+from windtpu_torch.models.layers import TimeBatchNorm
+from windtpu_torch.parallel import distributed
+from windtpu_torch.train.state import create_train_state
+from windtpu_torch.train.wgan_gp import make_train_step
+from windtpu_torch.weights import export_train_state, load_train_state
+
+torch.set_num_threads(2)
+
+WORLD = 2
+STEPS = 2
+TRAIN = dict(n_critic=1)
+# The state after two steps, at the tolerance tests/test_torch_train.py
+# holds its second step to.
+STATE_ATOL = 5e-4
+# The global-batch step against the single process on the whole batch:
+# the same arithmetic but for the order of the sums (BatchNorm's
+# statistics and the gradient means over two ranks), two Adam steps.
+SINGLE_ATOL = 2e-5
+
+
+def perturbed_flat(tcfg, seed):
+    """The port's fresh train state, flat, with parameters, statistics and
+    spectral vectors moved off their initial values."""
+    rng = np.random.default_rng(seed)
+    flat = export_train_state(create_train_state(tcfg, device="cpu"))
+    for k, v in flat.items():
+        if k.split("/")[0] in _STATE_FIELDS:
+            moved = v + 0.05 * rng.standard_normal(v.shape)
+            flat[k] = (np.abs(moved) + 0.1 if k.endswith("/var")
+                       else moved).astype(np.float32)
+    return flat
+
+
+def _as_arrays(draws, prefix):
+    out = {f"{prefix}/gen_noise": draws.gen_noise.numpy(),
+           f"{prefix}/eval_noise": draws.eval_noise.numpy()}
+    for i, d in enumerate(draws.critic):
+        for f in ("noise", "eps", "inst_real", "inst_fake"):
+            out[f"{prefix}/critic{i}/{f}"] = getattr(d, f).numpy()
+    return out
+
+
+def _port_state(tcfg, flat):
+    return load_train_state(create_train_state(tcfg, device="cpu"), flat)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Start the ranks on the inputs, run the JAX steps and the port's
+    single-process step here meanwhile, and collect everything."""
+    work = tmp_path_factory.mktemp("parallel")
+    jcfg, tcfg = configs(**TRAIN)
+    flat = perturbed_flat(tcfg, seed=1)
+    key = jax.random.key(3)
+    inputs = {f"state/{k}": v for k, v in flat.items()}
+    batches, global_draws = [], []
+    for s in range(STEPS):
+        lr, hr = batch(seed=10 + s, b=4)
+        batches.append((lr, hr))
+        inputs[f"lr/{s}"], inputs[f"hr/{s}"] = lr, hr
+        global_draws.append(jax_draws(jcfg, key, s, lr, hr))
+        inputs.update(_as_arrays(global_draws[-1], f"b/{s}"))
+        per = lr.shape[0] // WORLD
+        for i in range(WORLD):
+            rows = slice(i * per, (i + 1) * per)
+            rng = jax.random.fold_in(jax.random.fold_in(key, s), i)
+            inputs.update(_as_arrays(
+                jax_draws(jcfg, rng, None, lr[rows], hr[rows]),
+                f"a/{s}/{i}"))
+    np.savez(work / "inputs.npz", **inputs)
+    (work / "config.json").write_text(json.dumps(dict(
+        model=dict(tcfg.model.__dict__), train=dict(tcfg.train.__dict__),
+        steps=STEPS)))
+    procs = torch_ranks.launch("parallel", WORLD, work)
+    try:
+        mesh = j_make_mesh({"data": WORLD}, devices=jax.devices()[:WORLD])
+        rep, rows = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
+        want = {"a": [], "b": []}
+        ja = _jax_state(jcfg, flat)
+        jb = jax.device_put(_jax_state(jcfg, flat), rep)
+        step_a, step_b = j_sharded_step(jcfg, mesh), j_make_train_step(jcfg)
+        single = _port_state(tcfg, flat)
+        tstep = make_train_step(tcfg)
+        single_metrics = []
+        for s, (lr, hr) in enumerate(batches):
+            ja, ma = step_a(ja, lr, hr, key)
+            jb, mb = step_b(jb, jax.device_put(lr, rows),
+                            jax.device_put(hr, rows),
+                            jax.device_put(key, rep))
+            want["a"].append((jax.device_get(ja), jax.device_get(ma)))
+            want["b"].append((jax.device_get(jb), jax.device_get(mb)))
+            single, m = tstep(single, lr, hr, draws=global_draws[s])
+            single_metrics.append(m)
+    finally:
+        torch_ranks.finish(procs)
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(WORLD)]
+    checks = [json.loads((work / f"rank{r}.json").read_text())
+              for r in range(WORLD)]
+    return dict(tcfg=tcfg, want=want, ranks=ranks, checks=checks,
+                single=single, single_metrics=single_metrics)
+
+
+def _rank_state(run, rank, name):
+    prefix = f"{name}/"
+    return _port_state(run["tcfg"], {k[len(prefix):]: v for k, v in
+                                     run["ranks"][rank].items()
+                                     if k.startswith(prefix)})
+
+
+def _rank_metrics(run, rank, name, step):
+    prefix = f"{name}_metrics/{step}/"
+    return {k[len(prefix):]: v for k, v in run["ranks"][rank].items()
+            if k.startswith(prefix)}
+
+
+def _assert_ranks_identical(run, name):
+    r0, r1 = run["ranks"]
+    keys = [k for k in r0 if k.split("/")[0] in (name, f"{name}_metrics")]
+    assert keys and sorted(keys) == sorted(
+        k for k in r1 if k.split("/")[0] in (name, f"{name}_metrics"))
+    for k in keys:
+        np.testing.assert_allclose(r1[k], r0[k], rtol=0, atol=0, err_msg=k)
+
+
+def test_shard_map_step_matches_jax(run):
+    _assert_ranks_identical(run, "a")
+    for rank in range(WORLD):
+        for s in range(STEPS):
+            assert_metrics_close(_rank_metrics(run, rank, "a", s),
+                                 run["want"]["a"][s][1])
+        assert_states_close(_rank_state(run, rank, "a"),
+                            run["want"]["a"][-1][0], STATE_ATOL)
+
+
+def test_global_batch_step_ranks_equal_the_single_process_step(run):
+    _assert_ranks_identical(run, "b")
+    got = export_train_state(_rank_state(run, 0, "b"))
+    want = export_train_state(run["single"])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        # As tests/test_torch_train.py holds them: Adam's moments relative
+        # to the tensor's largest entry, everything else absolutely.
+        scale = (max(1.0, float(np.abs(want[k]).max()))
+                 if "_opt/" in k else 1.0)
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=SINGLE_ATOL * scale, err_msg=k)
+    for s in range(STEPS):
+        got_m = _rank_metrics(run, 0, "b", s)
+        assert sorted(got_m) == sorted(run["single_metrics"][s])
+        for k, v in run["single_metrics"][s].items():
+            np.testing.assert_allclose(got_m[k], float(v), rtol=1e-5,
+                                       atol=SINGLE_ATOL, err_msg=k)
+
+
+def test_global_batch_step_matches_jax_sharded_jit(run):
+    for s in range(STEPS):
+        assert_metrics_close(_rank_metrics(run, 0, "b", s),
+                             run["want"]["b"][s][1])
+    assert_states_close(_rank_state(run, 0, "b"), run["want"]["b"][-1][0],
+                        STATE_ATOL)
+
+
+def test_mesh_and_collectives_at_two_ranks(run):
+    for rank, checks in enumerate(run["checks"]):
+        meshes = checks["meshes"]
+        assert meshes["None"] == [{"data": WORLD}, [rank]]
+        assert meshes[str({"data": -1})] == [{"data": WORLD}, [rank]]
+        assert meshes[str({"data": 1, "ensemble": WORLD})] == [
+            {"data": 1, "ensemble": WORLD}, [0, rank]]
+        # Rank 1 lies outside a one-rank mesh, as JAX leaves devices out.
+        assert meshes[str({"data": 1})] == [{"data": 1},
+                                            [0] if rank == 0 else []]
+        assert checks["global_data_mesh"] == {"data": 1, "ensemble": WORLD}
+        assert "needs 3 devices, only 2" in checks["too_big"]
+        assert checks["replicated"] == [0.0] * 3
+        assert "disagree on the seed: [7, 8]" in checks["seed_disagreement"]
+        assert checks["seed"] == 7
+        # d/dv of sum_r (r + 1) * psum(v): every rank's v feeds all.
+        assert checks["psum_grad"] == 3.0
+
+
+def test_extreme_rmse_takes_the_global_denominator(run):
+    rng = np.random.default_rng(0)
+    real = torch.from_numpy(rng.standard_normal((4, 2, 5, 5, 2),
+                                                dtype=np.float32))
+    fake = torch.from_numpy(rng.standard_normal((4, 2, 5, 5, 2),
+                                                dtype=np.float32))
+    got = np.concatenate([r["rmse"] for r in run["ranks"]])
+    np.testing.assert_allclose(got, extreme_weighted_rmse(real, fake),
+                               rtol=1e-6)
+
+
+def test_batch_norm_takes_the_global_batch_statistics(run):
+    rng = np.random.default_rng(0)
+    rng.standard_normal((4, 2, 5, 5, 2), dtype=np.float32)
+    rng.standard_normal((4, 2, 5, 5, 2), dtype=np.float32)
+    bn = TimeBatchNorm(3)
+    with torch.no_grad():
+        bn.bn.scale.fill_(1.5)
+        bn.bn.bias.fill_(0.25)
+        bn.bn.mean.zero_()
+        bn.bn.var.fill_(1.0)
+    x = torch.from_numpy(2 + 3 * rng.standard_normal((4, 2, 5, 5, 3),
+                                                     dtype=np.float32))
+    x.requires_grad_()
+    y = bn(x, train=True)
+    (y * torch.arange(1.0, 4.0)).sum().backward()
+    # f32 sums in another order: a few ulps of the O(1) outputs.
+    for name, want in (("bn_y", y.detach()), ("bn_grad", x.grad)):
+        got = np.concatenate([r[name] for r in run["ranks"]])
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5)
+    for r in run["ranks"]:
+        np.testing.assert_allclose(r["bn_mean"], bn.bn.mean.numpy(),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(r["bn_var"], bn.bn.var.numpy(), rtol=1e-5)
+
+
+# ---- the mesh rules, without processes --------------------------------------
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_mesh_rules_match_jax(n):
+    devices = jax.devices()[:n]
+    specs = [None, {"data": -1}, {"data": 1}, {"data": n},
+             {"data": -1, "ensemble": 2}, {"data": 2, "ensemble": 2},
+             {"ensemble": n}, {"data": n + 1}]
+    for spec in specs:
+        try:
+            jm = j_make_mesh(spec, devices=devices)
+            want = dict(zip(jm.axis_names, jm.devices.shape))
+        except ValueError as e:
+            with pytest.raises(ValueError, match="needs"):
+                tmesh.mesh_axes(spec, n)
+            assert "needs" in str(e)
+            continue
+        assert tmesh.mesh_axes(spec, n) == want, spec
+    for members in range(1, 9):
+        jm = j_inference_mesh(members, devices=devices)
+        want = (None if jm is None
+                else dict(zip(jm.axis_names, jm.devices.shape)))
+        assert tapi.inference_mesh_axes(members, n) == want, members
+
+
+def test_one_process_mesh_needs_no_group():
+    mesh = tmesh.make_mesh()
+    assert mesh.shape == {"data": 1} and mesh.coords == (0,)
+    assert mesh.group("data") is None
+    assert mesh.axis_size("ensemble") == 1 and mesh.axis_index("ensemble") == 0
+    assert tapi.inference_mesh(4) is None
+    x = np.arange(6.0).reshape(6, 1)
+    np.testing.assert_array_equal(tmesh.shard_batch(mesh, x), x)
+
+
+def test_initialize_distributed_noop_single_process(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    assert distributed.initialize_distributed() is False
+    assert distributed.initialize_distributed(device="cpu") is False
+
+
+@pytest.mark.parametrize("device,backend,want", [
+    (None, None, "nccl"), ("cuda", None, "nccl"), ("cpu", None, "gloo"),
+    (None, "gloo", "gloo")])
+def test_initialize_distributed_backend_is_explicit(monkeypatch, device,
+                                                    backend, want):
+    """NCCL on the card, gloo on the CPU, another only when named; a CUDA
+    rank takes its card before the group exists."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(distributed.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(distributed.dist, "init_process_group",
+                        lambda *a, **k: calls.append((a, k)))
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert distributed.initialize_distributed(
+        "host:1234", 8, 6, backend=backend, device=device)
+    (args, kwargs) = calls[-1]
+    assert args == (want,)
+    assert kwargs["init_method"] == "tcp://host:1234"
+    assert (kwargs["world_size"], kwargs["rank"]) == (8, 6)
+    if device != "cpu":
+        assert calls[0] == torch.device("cuda", 2)   # rank 6 of 4 cards
+
+
+def test_initialize_distributed_raises_without_a_card_or_flags(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize_distributed("localhost:1", 2, 0)
+    for kwargs in ({"num_processes": 2}, {"coordinator_address": "h:1"},
+                   {"num_processes": 2, "process_id": 2,
+                    "coordinator_address": "h:1"}):
+        with pytest.raises(ValueError):
+            distributed.initialize_distributed(device="cpu", **kwargs)
+    assert not torch.distributed.is_initialized()
+
+
+def test_failed_nccl_init_raises():
+    """No fallback: NCCL that cannot start (no card here) raises, and no
+    process group is left behind."""
+    from windtpu_torch.utils.hostcpu import free_tcp_port
+
+    with pytest.raises((RuntimeError, ValueError)):
+        distributed.initialize_distributed(
+            f"localhost:{free_tcp_port()}", 1, 0, backend="nccl",
+            device="cpu")
+    assert not torch.distributed.is_initialized()

@@ -208,8 +208,9 @@ def test_predict_matches_jax(api_setup, members, stream):
                        streaming=stream, texture_gate=gate, device="cpu")
     mode = "streaming" if stream else ("ensemble" if members > 1
                                        else "single")
-    assert tapi.last_run_info() == {"mode": mode, "texture_gate": True}
-    assert japi.last_run_info()["mode"] == mode
+    assert tapi.last_run_info() == japi.last_run_info() == {
+        "mode": mode, "mesh_axes": None, "ensemble_sharded": False,
+        "n_devices": 1, "texture_gate": True}
     dims = (("member",) if members > 1 else ()) + ("time", "lat_1", "lon_1")
     for var in ("u10", "v10"):
         assert got[var].dims == want[var].dims == dims

@@ -114,14 +114,15 @@ def batch(seed, b=2):
 
 def jax_draws(jcfg, rng, step, low_res, high_res) -> StepDraws:
     """The random numbers the JAX step derives from (rng, step), as the
-    port's StepDraws."""
+    port's StepDraws; ``step=None`` takes ``rng`` as already folded."""
     def t(x):
         return torch.from_numpy(np.array(x))
 
     b, tt, h, w = low_res.shape[:4]
     noise_shape = (b, tt, h, w, jcfg.model.noise_channels)
     inst_shape = (b, tt, h, w, high_res.shape[-1])
-    rng = jax.random.fold_in(rng, step)
+    if step is not None:
+        rng = jax.random.fold_in(rng, step)
     critic = []
     for it in range(jcfg.train.n_critic):
         k_noise, k_eps, k_ir, k_if = jax.random.split(

@@ -2,12 +2,16 @@
 
 Counterpart of ``windtpu/api.py``: ``downscale`` / ``predict`` /
 ``get_network`` on :mod:`windtpu_torch.io` datasets, running the
-single-device tiled engine (:mod:`windtpu_torch.infer.engine`), or the
-host-streaming engine (:mod:`windtpu_torch.infer.streaming`) for domains
-too large for it, and the texture gate.  Ensembles run their members as
-one batched forward per patch group.  Every entry point takes
-``device=None``, which means ``"cuda"`` and raises when no card is
-present; pass ``device="cpu"`` to run on the CPU.
+tiled engine (:mod:`windtpu_torch.infer.engine`), or the host-streaming
+engine (:mod:`windtpu_torch.infer.streaming`) for domains too large for
+it, and the texture gate.  Ensembles run their members as one batched
+forward per patch group.  In a multi-process run (one process per card,
+:func:`windtpu_torch.parallel.initialize_distributed`) ``predict`` splits
+the members and patch groups over an inference mesh
+(:func:`inference_mesh`), and every rank returns the same result.  Every
+entry point takes ``device=None``, which means ``"cuda"`` (this rank's
+card) and raises when no card is present; pass ``device="cpu"`` to run on
+the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from windtpu_torch.core.config import (GANConfig, InferenceConfig,
                                        ModelConfig, TrainConfig)
 from windtpu_torch.core.device import resolve_device
+from windtpu_torch.core.mesh import Mesh, make_mesh
+from windtpu_torch.core.mesh import world as mesh_world
 from windtpu_torch.infer.engine import downscale_field
 from windtpu_torch.infer.template import (
     build_high_res_template_from_era5,
@@ -82,8 +88,42 @@ def get_network(weights_path: Optional[str] = None, device=None):
     return gan
 
 
+def inference_mesh_axes(ensemble_members: int, n_ranks: int):
+    """The axes of :func:`inference_mesh` over ``n_ranks`` ranks: the JAX
+    package's factorisation rules, or None for one rank."""
+    if n_ranks <= 1:
+        return None
+    e = 1
+    if ensemble_members > 1:
+        # The largest divisor of the member count that also divides the
+        # ranks, so that data x ensemble uses every rank.
+        e = max(d for d in range(1, n_ranks + 1)
+                if ensemble_members % d == 0 and n_ranks % d == 0)
+    axes = {}
+    if n_ranks // e > 1:
+        axes["data"] = n_ranks // e
+    if e > 1:
+        axes["ensemble"] = e
+    return axes or None
+
+
+def inference_mesh(ensemble_members: int = 1,
+                   world: Optional[int] = None) -> Optional[Mesh]:
+    """The inference mesh over the first ``world`` ranks (default:
+    all of the process group): an ``ensemble`` axis of the largest divisor
+    of the member count that fits (one member per rank), and the rest of
+    the ranks on a ``data`` axis that splits the patch groups (tile
+    parallelism).  None for one rank: the single-device engine needs no
+    mesh.  Every rank must call it alike (it creates process groups)."""
+    n = mesh_world()[1] if world is None else world
+    axes = inference_mesh_axes(ensemble_members, n)
+    return None if axes is None else make_mesh(axes)
+
+
 # Diagnostics of the most recent predict(): which engine ran ("single",
-# "ensemble" or "streaming") and whether the texture gate was applied.
+# "tile", "ensemble", "ensemble+tile" or "streaming"), the mesh's axes,
+# whether the members were split over ranks, how many ranks ran it, and
+# whether the texture gate was applied.
 _LAST_RUN = {}
 
 
@@ -96,8 +136,8 @@ def _engine_hbm_bytes(t: int, h: int, w: int, in_ch: int,
                       out_ch: int, members_per_device: int = 1) -> int:
     """The monolithic engine's resident domain tensors, the JAX package's
     formula: field + (canvas + one canvas-sized buffer) per member +
-    coverage map, all f32.  The port runs on one device, so the member
-    count is the whole ensemble."""
+    coverage map, all f32.  Every device ends with every member's canvas
+    (on a mesh too), so the member count is the whole ensemble."""
     px = t * h * w
     return 4 * (px * in_ch + members_per_device * 2 * px * out_ch + px)
 
@@ -143,6 +183,7 @@ def predict(
     streaming="auto",
     texture_gate="auto",
     device=None,
+    mesh="auto",
 ) -> Dataset:
     """Tile the merged (u10, v10, elevation) field into patch cubes, run the
     generator with fresh noise, stitch with an overlap mean and apply the
@@ -165,7 +206,15 @@ def predict(
     calibration, False disables the gate, a dict or ``.npz`` path
     overrides it; it runs where the stitched canvas lives (on the device
     for the monolithic engine, in host memory for streaming).
-    ``last_run_info()`` reports which engine ran."""
+
+    ``mesh``: "auto" builds :func:`inference_mesh` when a process group of
+    more than one rank exists, else runs on one device; a
+    :class:`windtpu_torch.core.mesh.Mesh` or None chooses.  On a mesh every
+    rank calls ``predict`` alike, the members split over its ``ensemble``
+    axis when it divides them and the patch groups over its ``data``
+    axis, and every rank gates and returns the whole result.  Streaming
+    runs on one device per rank, as in the JAX package.
+    ``last_run_info()`` reports which engine ran and where."""
     dev = resolve_device(device)
     network = network if network is not None else get_network(device=dev)
     if network.device != dev:
@@ -213,7 +262,15 @@ def predict(
     print(f"Applying model to {plan.num_patches} patches")
     member_axis = ensemble_members > 1
     seeds = member_seeds(seed, ensemble_members) if member_axis else [seed]
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = inference_mesh(ensemble_members)
+    ensemble_sharded = (member_axis and mesh is not None
+                        and "ensemble" in mesh.axis_names
+                        and ensemble_members % mesh.axis_size("ensemble")
+                        == 0)
     if streaming == "auto":
+        # Every rank ends with every member's canvas, so the whole
+        # ensemble counts on each, as on one device.
         streaming = (_engine_hbm_bytes(t_total, h, w, mcfg.in_channels,
                                        mcfg.out_channels,
                                        members_per_device=ensemble_members)
@@ -237,19 +294,28 @@ def predict(
             # The streamed canvas lives in host memory because it does not
             # fit on the device: gate it there, frame at a time.
             pred = apply_gate_targeted_np(gate_target, gate_floor, pred)
-        mode = "streaming"
+        mode, mesh, ensemble_sharded = "streaming", None, False
     else:
         pred, _ = downscale_field(network.generator, field, mcfg, icfg,
-                                  plan=plan, device=dev, **members)
+                                  plan=plan, device=dev, mesh=mesh,
+                                  **members)
         pred = _trim_canvas(pred, plan, icfg)
         if gate_params is not None:
+            # On the whole canvas of every rank, after the all-reduces.
             _gate_members_on_device(
                 torch.as_tensor(gate_target, device=dev),
                 torch.as_tensor(gate_floor, device=dev), pred, member_axis)
         pred = pred.cpu().numpy()
-        mode = "ensemble" if member_axis else "single"
+        tile_parallel = mesh is not None and mesh.axis_size("data") > 1
+        mode = (("ensemble" if member_axis else "tile" if tile_parallel
+                 else "single")
+                + ("+tile" if member_axis and tile_parallel else ""))
     _LAST_RUN.clear()
-    _LAST_RUN.update(mode=mode, texture_gate=gate_params is not None)
+    _LAST_RUN.update(
+        mode=mode, mesh_axes=None if mesh is None else mesh.shape,
+        ensemble_sharded=ensemble_sharded,
+        n_devices=1 if mesh is None else mesh.size,
+        texture_gate=gate_params is not None)
     return _assemble_output(pred, member_axis, plan, icfg, time_vals, lat,
                             lon, ensemble_members)
 

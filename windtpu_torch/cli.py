@@ -7,10 +7,19 @@
 downscaled u10/v10, with ``--ensemble N`` members), plus ``--device``
 (default: the card).
 
-``train_main`` (``train``) is ``windtpu/cli.py:train_main`` on one device:
-it reads ``x_{date}.nc`` / ``y_{date}.nc`` days (or synthetic ones)
-through ``data.BatchGenerator`` and trains with ``train.loop.train``;
-``--reconstruction-coefficient`` adds the perceptual loss.
+``train_main`` (``train``) is ``windtpu/cli.py:train_main``: it reads
+``x_{date}.nc`` / ``y_{date}.nc`` days (or synthetic ones) through
+``data.BatchGenerator`` and trains with ``train.loop.train``;
+``--reconstruction-coefficient`` adds the perceptual loss.  With
+``--coordinator-address/--num-processes/--process-id`` (or under
+``torchrun``) every process is one rank of a data-parallel run on its own
+card (``--device``, ``--backend``): each takes its rows of the global
+``--batch-size``, and the run equals a single process training on the
+whole batch.
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+windtpu_torch.cli ...``, ``main`` splits the patch groups (and the members
+of an ensemble) over the N ranks, and rank 0 writes the NetCDF.
 
 ``prepare_main`` (``prepare topo|daily``) is ``windtpu/cli.py:prepare_main``:
 ``topo`` turns a DEM GeoTIFF into the eight ``topo_<name>.nc`` descriptor
@@ -40,7 +49,8 @@ def main(argv=None):
     parser.add_argument("-o", "--output", default="downscaled.nc",
                         help="output path for the downscaled map (*.nc)")
     parser.add_argument("--weights", default=None,
-                        help=".npz generator weights")
+                        help=".npz generator weights, or a step_*.pt "
+                             "checkpoint (or a directory of them)")
     parser.add_argument("--ensemble", type=int, default=1,
                         help="number of stochastic ensemble members")
     parser.add_argument("--overlap-factor", type=float, default=0.01)
@@ -54,9 +64,14 @@ def main(argv=None):
 
     from windtpu_torch import api
     from windtpu_torch.core.device import resolve_device
+    from windtpu_torch.core.mesh import world
     from windtpu_torch.io.dataset import open_mfdataset
     from windtpu_torch.io.geotiff import open_rasterio
+    from windtpu_torch.parallel.distributed import initialize_distributed
 
+    # A no-op outside torchrun; under it, every rank takes its own card
+    # before anything resolves a device.
+    initialize_distributed(device=args.device)
     device = resolve_device(args.device)  # fail before reading any input
 
     longitude_r = tuple(map(float, args.lon.split(":"))) if args.lon else None
@@ -70,8 +85,9 @@ def main(argv=None):
         overlap_factor=args.overlap_factor, network=network,
         ensemble_members=args.ensemble, device=device,
         texture_gate=False if args.no_texture_gate else "auto")
-    result.to_netcdf(args.output)
-    print(f"wrote {args.output}")
+    if world()[0] == 0:   # every rank holds the same result
+        result.to_netcdf(args.output)
+        print(f"wrote {args.output}")
 
 
 def train_main(argv=None):
@@ -118,30 +134,30 @@ def train_main(argv=None):
                              "in eager PyTorch, which has no scan to "
                              "unroll")
     parser.add_argument("--coordinator-address", default=None,
-                        help="multi-process training: not ported yet "
-                             "(ROADMAP A12)")
-    parser.add_argument("--num-processes", type=int, default=None,
-                        help="multi-process training: not ported yet "
-                             "(ROADMAP A12)")
-    parser.add_argument("--process-id", type=int, default=None,
-                        help="multi-process training: not ported yet "
-                             "(ROADMAP A12)")
+                        help="host:port of rank 0 (multi-process data "
+                             "parallelism)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--backend", default=None,
+                        help="torch.distributed backend of a multi-process "
+                             "run (default: nccl on the card, gloo on the "
+                             "CPU; gloo also lets ranks share one card)")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda; 'cpu' to run "
-                             "on the CPU)")
+                        help="torch device (default: this rank's card; "
+                             "'cpu' to run on the CPU)")
     args = parser.parse_args(argv)
 
-    if (args.coordinator_address is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--coordinator-address / --num-processes / --process-id: "
-            "multi-process training comes with the multi-GPU slice "
-            "(ROADMAP A12)")
+    # First, before anything resolves a device: every rank joins the
+    # group and takes its card (a no-op in one process).
+    from windtpu_torch.parallel.distributed import initialize_distributed
+    multi = initialize_distributed(
+        args.coordinator_address, args.num_processes, args.process_id,
+        backend=args.backend, device=args.device)
 
     from windtpu_torch.core.config import (DataConfig, GANConfig,
                                            ModelConfig, TrainConfig)
     from windtpu_torch.core.device import resolve_device
+    from windtpu_torch.core.mesh import make_mesh, world
     from windtpu_torch.data import (BatchGenerator, LocalFileProvider,
                                     SyntheticDayProvider)
     from windtpu_torch.train.loop import train
@@ -181,13 +197,23 @@ def train_main(argv=None):
     else:
         in_prov = LocalFileProvider(args.inputs, "x_{date}.nc")
         out_prov = LocalFileProvider(args.outputs, "y_{date}.nc")
+    # Seeded, so that every rank builds the same global batches and takes
+    # its rows of them.
     bg = BatchGenerator(in_prov, output_provider=out_prov,
                         start_date=args.start_date, end_date=args.end_date,
-                        config=dcfg, num_workers=2)
-    state, _ = train(cfg, bg.as_device_iterator(device),
+                        config=dcfg, num_workers=2, seed=cfg.seed)
+    mesh = None
+    if multi:
+        n = world()[1]
+        if args.batch_size % n:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be divisible by the "
+                f"{n} processes of a multi-process run")
+        mesh = make_mesh({"data": n})
+    state, _ = train(cfg, bg.as_device_iterator(device, mesh=mesh),
                      num_steps=args.steps,
                      checkpoint_every=args.checkpoint_every,
-                     profile_dir=args.profile_dir, device=device)
+                     profile_dir=args.profile_dir, device=device, mesh=mesh)
     print(f"done at step {int(state.step)}")
     return state
 

@@ -15,9 +15,9 @@ rotations.  Fixed output shapes make every batch the same shape.
   count and scheduling;
 * a :class:`SyntheticDayProvider` fabricates deterministic in-memory days so
   the whole training stack is testable with zero external data;
-* ``as_device_iterator`` moves batches to one device through page-locked
-  memory, building the next host batch while the device takes the current
-  one.
+* ``as_device_iterator`` moves batches (or, with a mesh, this rank's rows
+  of them) to one device through page-locked memory, building the next
+  host batch while the device takes the current one.
 """
 
 from __future__ import annotations
@@ -274,18 +274,19 @@ class BatchGenerator:
             stop.set()
 
     # -- device infeed -------------------------------------------------------
-    def as_device_iterator(self, device=None, mesh=None):
+    def as_device_iterator(self, device=None, mesh=None,
+                           axis: str = "data"):
         """Yield (input, output) batches as tensors on ``device`` (``None``
         means the card).  On the card each batch goes through page-locked
         memory with ``non_blocking=True``, and the next host batch is
-        built while the device takes the current one.  Sharding a batch
-        over devices or processes (``mesh``) waits for the multi-GPU slice
-        (ROADMAP A12)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "as_device_iterator(mesh=...): batches sharded over several "
-                "devices or processes come with the multi-GPU slice "
-                "(ROADMAP A12)")
+        built while the device takes the current one.
+
+        With ``mesh`` (a :class:`windtpu_torch.core.mesh.Mesh`) every rank
+        builds the identical global batch (the pipeline is seeded and
+        deterministic) and moves only its contiguous rows: rank ``i`` of
+        the ``axis`` group takes rows ``[i * B/n, (i + 1) * B/n)``."""
+        from windtpu_torch.core.mesh import shard_batch
+
         device = resolve_device(device)
         cuda = device.type == "cuda"
 
@@ -293,6 +294,8 @@ class BatchGenerator:
             arrays = item if isinstance(item, tuple) else (item,)
             out = []
             for a in arrays:
+                if mesh is not None:
+                    a = shard_batch(mesh, a, axis)
                 t = torch.from_numpy(np.ascontiguousarray(a))
                 if cuda:
                     t = t.pin_memory()

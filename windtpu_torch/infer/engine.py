@@ -1,5 +1,6 @@
-"""Tiled inference engine, single device (counterpart of the monolithic
-predictor and ``downscale_field`` in ``windtpu/infer/engine.py``).
+"""Tiled inference engine (counterpart of the predictors and
+``downscale_field`` in ``windtpu/infer/engine.py``), on one device or
+split over the ranks of a mesh (tile and ensemble parallelism).
 
 The whole (T, H, W, C) field and the output canvas stay on the device:
 
@@ -35,6 +36,7 @@ import torch
 
 from windtpu_torch.core.config import InferenceConfig, ModelConfig
 from windtpu_torch.core.device import resolve_device
+from windtpu_torch.core.mesh import Mesh, all_reduce
 from windtpu_torch.infer.tiling import TilingPlan, plan_tiling
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -66,11 +68,22 @@ def _coverage_counts(plan: TilingPlan, origins_g: np.ndarray,
     return counts
 
 
-def _grouped_origins(plan: TilingPlan, group: int):
-    """(G, group, 3) int32 origins + (G, group) validity weights."""
+def _grouped_origins(plan: TilingPlan, group: int, group_multiple: int = 1):
+    """(G, group, 3) int32 origins + (G, group) validity weights, with the
+    group count padded to a multiple of ``group_multiple`` by zero-weight
+    groups."""
     origins_np, weights_np = _pad_to_multiple(
         plan.patch_origins().astype(np.int32), group)
-    return origins_np.reshape(-1, group, 3), weights_np.reshape(-1, group)
+    origins_g = origins_np.reshape(-1, group, 3)
+    weights_g = weights_np.reshape(-1, group)
+    if group_multiple > 1:
+        pad = (-origins_g.shape[0]) % group_multiple
+        if pad:
+            origins_g = np.concatenate(
+                [origins_g, np.repeat(origins_g[-1:], pad, axis=0)], axis=0)
+            weights_g = np.concatenate(
+                [weights_g, np.zeros((pad, group), np.float32)], axis=0)
+    return origins_g, weights_g
 
 
 def _clamp(start: np.ndarray, size: int, dim: int) -> np.ndarray:
@@ -156,32 +169,116 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
     and stitch alone.  The origins, validity weights and coverage map are
     built once here, on the host, and moved to ``device`` (``None`` means
     the card; see ``core.device.resolve_device``)."""
+    return _build_predictor(mcfg, icfg, plan, apply_fn, device)
+
+
+def make_tile_parallel_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
+                                 plan: TilingPlan, mesh: Mesh,
+                                 apply_fn: ApplyFn, axis: str = "data",
+                                 device=None):
+    """Spatial-tile parallel inference over the ranks of ``mesh``'s
+    ``axis``: the same ``run(field, generator) -> (prediction, counts)``
+    as :func:`make_tiled_predictor`, called on every rank with the same
+    field and generators, and the same result on every rank.
+
+    The group list is padded with zero-weight groups to a multiple of the
+    axis size, and each rank takes a contiguous block of it.  A rank sums
+    the normalisation statistics over its own patches, and one all-reduce
+    makes them global; it stitches its predictions into a local canvas,
+    and one all-reduce of the canvas completes the overlap mean, whose
+    coverage map comes from the global origin list.  The noise equals the
+    single-device predictor's: a rank whose block starts at group ``g0``
+    draws and drops the noise of groups ``0 .. g0 - 1`` from each
+    generator first (one group-sized draw at a time, the draws the
+    single-device run makes), so each group sees the numbers it sees
+    there."""
+    return _build_predictor(mcfg, icfg, plan, apply_fn, device,
+                            mesh.axis_size(axis), mesh.axis_index(axis),
+                            mesh.group(axis))
+
+
+def make_ensemble_tile_parallel_predictor(
+        mcfg: ModelConfig, icfg: InferenceConfig, plan: TilingPlan,
+        mesh: Mesh, apply_fn: ApplyFn, tile_axis: str = "data",
+        ensemble_axis: str = "ensemble", device=None):
+    """Ensemble and tile parallelism together: ``run(field, generators) ->
+    (prediction (M, T, H, W, out_channels), counts)`` with one generator
+    per member, the same on every rank.  The members split over
+    ``ensemble_axis`` in contiguous blocks (M divisible by its size), and
+    each member's patch groups over ``tile_axis`` as in
+    :func:`make_tile_parallel_predictor` (an absent axis has size 1).
+    Generator work is members x patches, split over the whole mesh.  One
+    all-reduce over ``ensemble_axis`` into a zero-filled (M, ...) canvas
+    leaves every member on every rank."""
+    tiled = make_tile_parallel_predictor(mcfg, icfg, plan, mesh, apply_fn,
+                                         tile_axis, device)
+    n_ens = mesh.axis_size(ensemble_axis)
+    e = mesh.axis_index(ensemble_axis)
+
+    @torch.no_grad()
+    def run(field: torch.Tensor, generators: Sequence[torch.Generator]):
+        n_members = len(generators)
+        if n_members % n_ens:
+            raise ValueError(f"{n_members} members do not split over the "
+                             f"{n_ens} ranks of {ensemble_axis!r}")
+        per = n_members // n_ens
+        own, counts = tiled(field, list(generators[e * per:(e + 1) * per]))
+        out = own.new_zeros((n_members,) + tuple(own.shape[1:]))
+        out[e * per:(e + 1) * per] = own
+        return all_reduce(out, mesh.group(ensemble_axis)), counts
+
+    return run
+
+
+def _skip_noise(gens: Sequence[torch.Generator], shape, groups: int,
+                device: torch.device) -> None:
+    """Advance each generator past ``groups`` group-sized noise draws,
+    drawn one at a time as :func:`_group_apply` draws them."""
+    if groups == 0:
+        return
+    buf = torch.empty(shape, device=device)
+    for gen in gens:
+        for _ in range(groups):
+            torch.randn(shape, generator=gen, out=buf)
+
+
+def _build_predictor(mcfg, icfg, plan, apply_fn, device, n_shards: int = 1,
+                     shard: int = 0, group=None):
+    """The predictor of :func:`make_tiled_predictor` on block ``shard`` of
+    ``n_shards`` of the group list, its statistics and canvas summed over
+    the process group ``group`` (None: one device)."""
     device = resolve_device(device)
     img, seq, crop = plan.image_size, plan.sequence_length, icfg.border_crop
     size = img - 2 * crop
-    origins_g, weights_np = _grouped_origins(plan, icfg.group_size)
+    origins_g, weights_np = _grouped_origins(plan, icfg.group_size, n_shards)
     weights = torch.as_tensor(weights_np, device=device)
+    # Coverage is a whole-domain quantity: from the global origin list.
     coverage = torch.as_tensor(
         _coverage_counts(plan, origins_g, weights_np, crop), device=device)
+    per = origins_g.shape[0] // n_shards
+    own = range(shard * per, (shard + 1) * per)
+    noise_shape = (icfg.group_size, seq, img, img, mcfg.noise_channels)
     reduce_axes = ((0, 1, 2) if icfg.replicate_normalization_quirk
                    else (0, 1, 2, 3))
     plans_by_shape = {}
 
     def field_plan(shape):
-        """Per field shape: each group's gather indices on the device and
-        its stitch starts on the host."""
+        """Per field shape: each own group's index, gather indices on the
+        device and stitch starts on the host."""
         if shape not in plans_by_shape:
             plans_by_shape[shape] = [
-                (tuple(torch.as_tensor(ix, device=device)
-                       for ix in _patch_indices(o, img, seq, shape)),
-                 _stitch_starts(o, seq, img, crop, shape).tolist())
-                for o in origins_g]
+                (g, tuple(torch.as_tensor(ix, device=device)
+                          for ix in _patch_indices(origins_g[g], img, seq,
+                                                   shape)),
+                 _stitch_starts(origins_g[g], seq, img, crop,
+                                shape).tolist())
+                for g in own]
         return plans_by_shape[shape]
 
     def stats_pass(field, groups):
         """NaN-aware mean/std of the stacked patch tensor."""
         s = s2 = n = 0.0
-        for g, (ix, _) in enumerate(groups):
+        for g, ix, _ in groups:
             patches = field[ix]
             nan = torch.isnan(patches)
             mask = (~nan).float() * weights[g][:, None, None, None, None]
@@ -189,6 +286,8 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
             s = s + torch.sum(vals * mask, dim=reduce_axes)
             s2 = s2 + torch.sum(vals * vals * mask, dim=reduce_axes)
             n = n + torch.sum(mask, dim=reduce_axes)
+        if group is not None:
+            s, s2, n = all_reduce(torch.stack([s, s2, n]), group)
         mean = s / torch.clamp(n, min=1.0)
         var = torch.clamp(s2 / torch.clamp(n, min=1.0) - mean ** 2, min=0.0)
         std = torch.sqrt(var)
@@ -211,12 +310,14 @@ def make_tiled_predictor(mcfg: ModelConfig, icfg: InferenceConfig,
         counts = counts[:t_total]
         canvas = field.new_zeros((n_members, t_total, h, w,
                                   mcfg.out_channels))
-        for g, (ix, starts) in enumerate(groups):
+        _skip_noise(gens, noise_shape, own.start, field.device)
+        for g, ix, starts in groups:
             preds = _group_apply(apply_fn, (field[ix] - mean) / std,
                                  weights[g], gens, mcfg, icfg)
             for i, (t0, y0, x0) in enumerate(starts):
                 canvas[:, t0:t0 + seq, y0:y0 + size,
                        x0:x0 + size] += preds[:, i]
+        all_reduce(canvas, group)
         # In place: the overlap mean adds no canvas-sized temporary.
         out = canvas.div_(torch.clamp(counts, min=1.0)).masked_fill_(
             counts == 0, float("nan"))
@@ -234,15 +335,22 @@ def downscale_field(
     plan: Optional[TilingPlan] = None,
     ensemble_generators: Optional[Sequence[Seed]] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
+    tile_axis: str = "data",
 ) -> Tuple[torch.Tensor, TilingPlan]:
-    """Tile + predict + stitch a full field on one device.  Returns
-    (prediction, plan).
+    """Tile + predict + stitch a full field.  Returns (prediction, plan).
 
     ``field`` is a tensor or a numpy array, moved to ``device`` (``None``
     means the card).  ``generator`` is a ``torch.Generator`` or an int
     seed (default seed 0).  With ``ensemble_generators`` (generators or
     seeds, one per member) the result gains a leading member axis: the
-    members share each group's gather and run as one batched forward."""
+    members share each group's gather and run as one batched forward.
+
+    With ``mesh`` every rank calls this with the same arguments and gets
+    the same result: members split over an ``ensemble`` axis when the mesh
+    has one that divides them (:func:`make_ensemble_tile_parallel_
+    predictor`), else patch groups split over ``tile_axis``
+    (:func:`make_tile_parallel_predictor`), as the JAX package routes."""
     device = resolve_device(device)
     icfg = icfg or InferenceConfig(
         sequence_length=mcfg.sequence_length, image_size=mcfg.image_size,
@@ -252,9 +360,20 @@ def downscale_field(
     if plan is None:
         plan = plan_tiling(h, w, t, icfg.image_size, icfg.sequence_length,
                            icfg.overlap_factor)
-    predictor = make_tiled_predictor(mcfg, icfg, plan, apply_fn, device)
     if ensemble_generators is not None:
         gens = [_as_generator(g, device) for g in ensemble_generators]
+        if (mesh is not None and "ensemble" in mesh.axis_names
+                and len(gens) % mesh.axis_size("ensemble") == 0):
+            predictor = make_ensemble_tile_parallel_predictor(
+                mcfg, icfg, plan, mesh, apply_fn, tile_axis, "ensemble",
+                device)
+            return predictor(field, gens)[0], plan
+    if mesh is not None:
+        predictor = make_tile_parallel_predictor(mcfg, icfg, plan, mesh,
+                                                 apply_fn, tile_axis, device)
+    else:
+        predictor = make_tiled_predictor(mcfg, icfg, plan, apply_fn, device)
+    if ensemble_generators is not None:
         return predictor(field, gens)[0], plan
     gen = _as_generator(0 if generator is None else generator, device)
     return predictor(field, gen)[0], plan

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from windtpu_torch.core.mesh import psum
+
 EPSILON = 1e-7  # tf.keras.backend.epsilon()
 
 # Dujardin & Lehning (2020) constants.
@@ -57,12 +59,14 @@ def wind_speed_weighted_rmse(real: torch.Tensor,
     return torch.sqrt(torch.mean(result, dim=(1, 2, 3)))
 
 
-def extreme_weighted_rmse(real: torch.Tensor,
-                          fake: torch.Tensor) -> torch.Tensor:
+def extreme_weighted_rmse(real: torch.Tensor, fake: torch.Tensor,
+                          group=None) -> torch.Tensor:
     """RMSE weighted by wind extremeness, shape (B,).  The weights are
-    normalized by the sum over the WHOLE batch."""
+    normalized by the sum over the WHOLE batch; when the batch is split
+    over the ranks of ``group`` (a process group), the denominator is
+    all-reduced over it, as the JAX package psums it over ``axis_name``."""
     sq = real**2
-    denom = torch.sum(sq)
+    denom = psum(torch.sum(sq), group)
     weights = torch.where(denom == 0, torch.zeros_like(sq), sq / denom)
     result = _zero_nans(weights * (real - fake) ** 2)
     return torch.sqrt(torch.sum(result, dim=(1, 2, 3, 4)))

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from windtpu_torch.core.mesh import psum
 from windtpu_torch.ops.convlstm import hard_sigmoid
 
 Padding = Union[int, str]
@@ -253,7 +254,14 @@ class TimeBatchNorm(nn.Module):
     normalizes with the batch's own mean and biased variance, taken in f32
     whatever the compute dtype (``E[x^2] - E[x]^2``, floored at 0), lets the
     gradient flow through them, and moves the running statistics by
-    ``ra = 0.99 * ra + 0.01 * batch`` with that same biased variance."""
+    ``ra = 0.99 * ra + 0.01 * batch`` with that same biased variance.
+
+    ``group``, a process group (None: this process's batch alone), makes
+    the batch the global one split over its ranks: the f32 per-channel
+    sum, sum of squares and count are all-reduced over it, differentiably,
+    before the same formula; the running statistics then move alike on
+    every rank.  The train step sets it for its global-batch semantics
+    (:func:`batch_norm_group`)."""
 
     momentum = 0.99
     eps = 1e-3
@@ -262,6 +270,7 @@ class TimeBatchNorm(nn.Module):
         super().__init__()
         self.bn = _BatchNormParams(features)
         self.dtype = dtype
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype or x.dtype
@@ -273,13 +282,31 @@ class TimeBatchNorm(nn.Module):
             return _unfold(y.permute(0, 2, 3, 1), x.shape[0])
         xf = x.float()
         dims = (0, 1, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
+        else:
+            c = xf.shape[-1]
+            count = xf.new_full((1,), xf.numel() // c)
+            sums = psum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                   count]), self.group)
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             bn.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
             bn.var.mul_(self.momentum).add_((1 - self.momentum) * var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * bn.scale) + bn.bias
         return y.to(dt)
+
+
+def batch_norm_group(module: nn.Module, group) -> None:
+    """Set the process group of every :class:`TimeBatchNorm` in
+    ``module`` (None: per-process batch statistics)."""
+    for m in module.modules():
+        if isinstance(m, TimeBatchNorm):
+            m.group = group
 
 
 class _LayerNormParams(nn.Module):

@@ -12,6 +12,7 @@ critic's pyramids do not take."""
 from __future__ import annotations
 
 import os
+import re
 from typing import Optional
 
 import torch
@@ -85,12 +86,15 @@ class WindDownscalingGAN:
     def load_weights(self, filepath) -> "WindDownscalingGAN":
         """Load single-file generator weights (``.npz`` in the JAX
         package's ``save_generator_npz`` format), one ``step_*.pt``
-        checkpoint, or the latest checkpoint of a directory."""
+        checkpoint, or the latest checkpoint of a directory.  An orbax
+        checkpoint of the JAX package (a ``step_<N>`` directory, or a
+        directory of them) raises ``ValueError`` naming the export route."""
         path = os.fspath(filepath)
         if path.endswith(".npz"):
             load_generator_npz(path, self.generator)
             return self
         if os.path.isdir(path):
+            _refuse_orbax(path)
             latest = ckpt.latest_checkpoint(path)
             if latest is None:
                 raise FileNotFoundError(
@@ -98,3 +102,18 @@ class WindDownscalingGAN:
             path = latest
         ckpt.restore_checkpoint(path, self.state)
         return self
+
+
+def _refuse_orbax(path: str) -> None:
+    """Raise where ``path`` is an orbax step directory of the JAX package
+    or holds one: the port reads no orbax."""
+    name = os.path.basename(os.path.normpath(path))
+    orbax = re.fullmatch(r"step_\d+", name) or any(
+        re.fullmatch(r"step_\d+", d)
+        and os.path.isdir(os.path.join(path, d)) for d in os.listdir(path))
+    if orbax:
+        raise ValueError(
+            f"{path} is an orbax checkpoint of the JAX package, which the "
+            f"port cannot read; export its generator with "
+            f"windtpu.train.checkpoint.save_generator_npz to a .npz file "
+            f"and pass that, or pass a directory of step_*.pt checkpoints")

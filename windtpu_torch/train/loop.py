@@ -1,5 +1,6 @@
 """Training loop: batches -> train step -> logging and checkpoints
-(counterpart of ``windtpu/train/loop.py``, single device)."""
+(counterpart of ``windtpu/train/loop.py``), on one device or, with a
+mesh, on every rank of a data-parallel run."""
 
 from __future__ import annotations
 
@@ -8,9 +9,13 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from windtpu_torch.core.config import GANConfig
+from windtpu_torch.core.mesh import Mesh, world
 from windtpu_torch.features import get_encoder_fn
+from windtpu_torch.parallel.distributed import (agree, replicate_to_mesh,
+                                                seed_on_mesh)
 from windtpu_torch.train import checkpoint as ckpt
 from windtpu_torch.train.state import GANTrainState, create_train_state
 from windtpu_torch.train.wgan_gp import make_multi_train_step, make_train_step
@@ -27,9 +32,20 @@ def train(
     log_fn: Callable[[int, dict], None] = None,
     profile_dir: Optional[str] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ):
     """Run ``num_steps`` WGAN-GP updates over ``batches`` of
     (low_res, high_res) arrays.  Returns (state, history).
+
+    With ``mesh`` (every rank runs the loop) the batches are this rank's
+    rows of each global batch (``BatchGenerator.as_device_iterator(mesh=
+    mesh)``) and the step is the global-batch step of
+    :func:`windtpu_torch.train.wgan_gp.make_train_step`: equal to the
+    single-process step on the whole batch.  Every rank restores the same
+    checkpoint step or none (a disagreement raises on every rank), rank
+    0's state is broadcast to all before the first step, the step's seed
+    is checked across ranks, and a barrier precedes the first step.  Only
+    rank 0 writes checkpoints and ``metrics.jsonl`` and prints.
 
     Without ``state`` a fresh one is made on ``device`` (``None`` means the
     card).  With ``cfg.checkpoint_dir`` the latest checkpoint there is
@@ -43,14 +59,25 @@ def train(
     ``torch.profiler`` trace of calls 2 and 3."""
     if state is None:
         state = create_train_state(cfg, device=device)
+    lead = world()[0] == 0
     metrics_logger = None
     if cfg.checkpoint_dir:
         latest = ckpt.latest_checkpoint(cfg.checkpoint_dir)
+        if mesh is not None:
+            # An unshared checkpoint directory, or a rank that lags a save,
+            # would restore different states; the broadcast below would
+            # then hide it behind rank 0's.
+            agree(int(latest.rsplit("step_", 1)[1][:-3]) if latest else -1,
+                  f"the checkpoint step to restore from "
+                  f"{cfg.checkpoint_dir} (-1: none); the directory must "
+                  f"be shared, or equally replicated, across ranks")
         if latest:
             state = ckpt.restore_checkpoint(latest, state)
-            print(f"resumed from {latest} (step {state.step})")
-        metrics_logger = MetricsLogger(
-            f"{cfg.checkpoint_dir}/metrics.jsonl")
+            if lead:
+                print(f"resumed from {latest} (step {state.step})")
+        if lead:
+            metrics_logger = MetricsLogger(
+                f"{cfg.checkpoint_dir}/metrics.jsonl")
 
     # The perceptual reconstruction loss: its encoder (checkpointed,
     # bundled or random, features.get_encoder_fn) on the state's device.
@@ -60,10 +87,21 @@ def train(
                                     cfg.model.sequence_length,
                                     device=state.device)
     k = max(1, cfg.train.steps_per_call)
-    single_fn = make_train_step(cfg, feature_fn=feature_fn)
-    multi_fn = (make_multi_train_step(cfg, k, feature_fn=feature_fn)
+    single_fn = make_train_step(cfg, feature_fn=feature_fn, mesh=mesh)
+    multi_fn = (make_multi_train_step(cfg, k, feature_fn=feature_fn,
+                                      mesh=mesh)
                 if k > 1 else single_fn)
-    rng = torch.Generator(device=state.device).manual_seed(cfg.seed + 1)
+    seed = cfg.seed + 1
+    if mesh is not None:
+        replicate_to_mesh(mesh, [state.generator, state.discriminator,
+                                 state.g_opt.state, state.d_opt.state])
+        for opt in (state.g_opt, state.d_opt):
+            opt.count = agree(opt.count, "the optimizer step count")
+        state.step = agree(state.step, "the step")
+        seed = seed_on_mesh(mesh, seed)
+        if world()[1] > 1:
+            dist.barrier()
+    rng = torch.Generator(device=state.device).manual_seed(seed)
     history = []
     it = iter(batches)
     t_last = time.perf_counter()
@@ -108,17 +146,17 @@ def train(
                 metrics_logger(state.step, metrics)
             if log_fn:
                 log_fn(state.step, metrics)
-            else:
+            elif lead:
                 msg = " ".join(f"{key}={v:.4g}"
                                for key, v in metrics.items())
                 print(f"step {state.step}: {msg}")
-        if (cfg.checkpoint_dir and checkpoint_every
+        if (cfg.checkpoint_dir and checkpoint_every and lead
                 and prev // checkpoint_every
                 != local_step // checkpoint_every):
             ckpt.save_checkpoint(cfg.checkpoint_dir, state)
     if profiler is not None:  # num_steps ended inside the trace window
         _stop_profiler(profiler, profile_dir, state.device)
-    if cfg.checkpoint_dir:
+    if cfg.checkpoint_dir and lead:
         ckpt.save_checkpoint(cfg.checkpoint_dir, state)
     if metrics_logger:
         metrics_logger.close()

@@ -7,6 +7,9 @@ import math
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed as dist
+
+from windtpu_torch.core.mesh import psum
 
 
 def discriminator_loss(real_score: torch.Tensor,
@@ -51,7 +54,8 @@ def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor],
 
 def highpass_energy_ratio_loss(fake: torch.Tensor, truth: torch.Tensor,
                                sigma: float = 7.0, eps: float = 1e-6,
-                               rel_floor: float = 0.05) -> torch.Tensor:
+                               rel_floor: float = 0.05,
+                               group=None) -> torch.Tensor:
     """Per-sample, per-channel squared log-ratio of high-pass energy, fake
     against truth:
 
@@ -61,7 +65,9 @@ def highpass_energy_ratio_loss(fake: torch.Tensor, truth: torch.Tensor,
     ``sigma``, computed with an FFT transfer function over (H, W) in f32.
     Both energies get an additive floor of ``rel_floor * mean(hp_truth)``
     over the batch, which bounds the term of a channel with almost no
-    fine-scale energy and keeps its gradient usable."""
+    fine-scale energy and keeps its gradient usable.  With ``group`` (a
+    process group over which a global batch is split in equal shards) that
+    mean is the global batch's."""
     def hp_energy(x):
         x = x.float()
         h, w = x.shape[2], x.shape[3]
@@ -75,7 +81,10 @@ def highpass_energy_ratio_loss(fake: torch.Tensor, truth: torch.Tensor,
 
     hp_f = hp_energy(fake)
     hp_t = hp_energy(truth)
-    floor = rel_floor * torch.mean(hp_t)
+    mean_t = torch.mean(hp_t)
+    if group is not None:
+        mean_t = psum(mean_t, group) / dist.get_world_size(group)
+    floor = rel_floor * mean_t
     log_ratio = (torch.log(hp_f + floor + eps)
                  - torch.log(hp_t + floor + eps))
     return torch.mean(log_ratio ** 2)

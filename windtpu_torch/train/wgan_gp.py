@@ -22,6 +22,27 @@ draws everything a step needs from a ``torch.Generator``, and the step
 takes the draws, so a test can hand the same numbers to this step and to
 the JAX one.  Gradients are taken with ``torch.autograd.grad`` for the
 updated network's parameters only; ``.grad`` fields are never filled.
+
+Across the ranks of a mesh axis (one process per device) the step runs on
+each rank's rows of the batch, with one of the JAX package's two
+data-parallel semantics:
+
+* the global batch (``make_train_step(cfg, mesh=mesh)``, what JAX's
+  sharded ``jit`` computes and ``train_main`` runs): every rank draws the
+  global batch's random numbers from the same generator and keeps its
+  rows, the generator's BatchNorm takes the global batch's statistics
+  (``TimeBatchNorm.group``), and the gradients and metrics are averaged
+  over the ranks.  The critic normalises per sample, so this equals the
+  single-process step on the whole batch up to summation order;
+* the ``shard_map`` step (``pmean_step=True``,
+  :func:`windtpu_torch.parallel.make_sharded_train_step`): each rank draws
+  its own numbers, BatchNorm takes the local batch, gradients, losses and
+  metrics are averaged over the ranks, and the running statistics once at
+  the end of the step.
+
+Both average with explicit all-reduces (``core.mesh.pmean``): DDP's
+``broadcast_buffers`` would copy rank 0's BatchNorm statistics instead of
+averaging them.
 """
 
 from __future__ import annotations
@@ -33,7 +54,9 @@ import torch
 from torch import nn
 
 from windtpu_torch.core.config import GANConfig, TrainConfig
+from windtpu_torch.core.mesh import Mesh, pmean
 from windtpu_torch.metrics import metrics as M
+from windtpu_torch.models.layers import TimeBatchNorm, batch_norm_group
 from windtpu_torch.train.losses import (
     discriminator_loss,
     generator_adversarial_loss,
@@ -126,13 +149,13 @@ def _batch(state: GANTrainState, cfg: GANConfig, low_res,
     return low_res, high_res
 
 
-def _generator_metrics(high_res: torch.Tensor,
-                       fake: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _generator_metrics(high_res: torch.Tensor, fake: torch.Tensor,
+                       group=None) -> Dict[str, torch.Tensor]:
     return {
         "g_acd": torch.mean(M.angular_cosine_distance(high_res, fake)),
         "g_lsd": torch.mean(M.log_spectral_distance(high_res, fake)),
         "g_extreme_rmse": torch.mean(
-            M.extreme_weighted_rmse(high_res, fake)),
+            M.extreme_weighted_rmse(high_res, fake, group)),
         "g_ws_weighted_rmse": torch.mean(
             M.wind_speed_weighted_rmse(high_res, fake)),
         "g_ws_rmse": torch.mean(M.wind_speed_rmse(high_res, fake)),
@@ -142,13 +165,37 @@ def _generator_metrics(high_res: torch.Tensor,
 FeatureFn = Callable[[torch.Tensor], torch.Tensor]
 
 
+def _rows(draws: StepDraws, start: int, size: int) -> StepDraws:
+    """The draws of batch rows [start, start + size)."""
+    def cut(x):
+        return None if x is None else x[start:start + size]
+
+    return StepDraws(
+        critic=[CriticDraws(*(cut(getattr(d, f.name))
+                              for f in dataclasses.fields(d)))
+                for d in draws.critic],
+        gen_noise=cut(draws.gen_noise), eval_noise=cut(draws.eval_noise))
+
+
 def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
-                    detach_gp: Optional[bool] = None):
+                    detach_gp: Optional[bool] = None,
+                    mesh: Optional[Mesh] = None, axis: str = "data",
+                    pmean_step: bool = False):
     """Build ``step(state, low_res, high_res, rng=None, *, draws=None) ->
     (state, metrics)``.  ``state`` is updated in place.  The step draws its
     random numbers from ``rng`` (a ``torch.Generator``) unless ``draws``
     (a :class:`StepDraws`) hands them in.  ``metrics`` maps the JAX
     package's metric names to 0-d tensors on the state's device.
+
+    With ``mesh`` the batch is this rank's rows, the ``axis`` ranks
+    together holding the batch, and the step runs one of the two
+    data-parallel semantics of the module docstring: the global batch by
+    default (``draws`` then holds the global batch's numbers, and ``rng``
+    must be seeded alike on every rank), the ``shard_map`` step with
+    ``pmean_step=True`` (``draws`` holds this rank's; from ``rng`` each
+    rank seeds its own generator with one of ``axis_size`` seeds drawn
+    alike on every rank, the counterpart of ``fold_in(rng,
+    axis_index)``).  The state must be the same on every rank.
 
     ``feature_fn`` maps a (B, T, H, W, 2) field to (B, T, latent)
     perceptual features (:func:`windtpu_torch.features.get_encoder_fn`);
@@ -164,14 +211,40 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                and tcfg.reconstruction_coefficient > 0 else None)
     detach = tcfg.detach_gp if detach_gp is None else detach_gp
     std = tcfg.noise_std
+    group = mesh.group(axis) if mesh is not None else None
+    n_shards = mesh.axis_size(axis) if mesh is not None else 1
+    shard = mesh.axis_index(axis) if mesh is not None else 0
+    global_batch = mesh is not None and not pmean_step
+
+    def step_draws(state, low_res, high_res, rng, draws):
+        b = low_res.shape[0]
+        if draws is None and pmean_step:
+            seeds = torch.randint(0, 2 ** 62, (n_shards,), generator=rng,
+                                  device=rng.device)
+            rng = torch.Generator(device=rng.device).manual_seed(
+                int(seeds[shard]))
+        if draws is None:
+            rows = b * n_shards if global_batch else b
+            draws = draw_step_noise(cfg, (rows,) + tuple(low_res.shape[1:]),
+                                    high_res.shape[-1], rng, state.device)
+        if global_batch and n_shards > 1:
+            draws = _rows(draws, shard * b, b)
+        return draws
 
     def train_step(state: GANTrainState, low_res, high_res,
                    rng: Optional[torch.Generator] = None, *,
                    draws: Optional[StepDraws] = None):
         low_res, high_res = _batch(state, cfg, low_res, high_res)
-        if draws is None:
-            draws = draw_step_noise(cfg, low_res.shape, high_res.shape[-1],
-                                    rng, state.device)
+        draws = step_draws(state, low_res, high_res, rng, draws)
+        if global_batch:
+            batch_norm_group(state.generator, group)
+        try:
+            return body(state, low_res, high_res, draws)
+        finally:
+            if global_batch:
+                batch_norm_group(state.generator, None)
+
+    def body(state, low_res, high_res, draws):
         gen, critic = state.generator, state.discriminator
         g_params, d_params = state.g_opt.params, state.d_opt.params
         b = low_res.shape[0]
@@ -206,10 +279,10 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                 rs = critic(low_res, real_in, train=True)
                 fs = critic(low_res, fake_in, train=True)
             loss = discriminator_loss(rs, fs) + penalty
-            d_grads = _grads_or_zeros(loss, d_params)
+            *d_grads, d_loss_val, gp_mean_norm = pmean(
+                _grads_or_zeros(loss, d_params)
+                + [loss.detach(), gp_mean_norm.detach()], group)
             state.d_opt.step(d_grads)
-            d_loss_val = loss.detach()
-            gp_mean_norm = gp_mean_norm.detach()
             d_grad_diag = _tensor_mean_sq(d_grads)
 
         # ---- generator update ------------------------------------------
@@ -223,16 +296,29 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
             g_reco = reco_fn(low_res[..., :2], fake)
         if tcfg.sharpness_coefficient > 0:
             g_sharp = tcfg.sharpness_coefficient * highpass_energy_ratio_loss(
-                fake, high_res, sigma=tcfg.sharpness_sigma)
+                fake, high_res, sigma=tcfg.sharpness_sigma,
+                group=group if global_batch else None)
         g_loss = g_adv + g_reco + g_sharp
-        g_grads = _grads_or_zeros(g_loss, g_params)
+        *g_grads, g_loss, g_adv, g_reco, g_sharp = pmean(
+            _grads_or_zeros(g_loss, g_params)
+            + [g_loss.detach(), g_adv.detach(), g_reco.detach(),
+               g_sharp.detach()], group)
+        if pmean_step:
+            # BatchNorm's running statistics moved with each rank's own
+            # batch; the moving average is linear in the batch statistics,
+            # so one mean at the end equals the global batch's moves.
+            stats = [b for m in gen.modules() if isinstance(m, TimeBatchNorm)
+                     for b in (m.bn.mean, m.bn.var)]
+            with torch.no_grad():
+                for buf, mean in zip(stats, pmean(stats, group)):
+                    buf.copy_(mean)
         state.g_opt.step(g_grads)
 
         metrics = {
-            "g_loss": g_loss.detach(),
-            "g_disc_loss": g_adv.detach(),
-            "g_reco_loss": g_reco.detach(),
-            "g_sharp_loss": g_sharp.detach(),
+            "g_loss": g_loss,
+            "g_disc_loss": g_adv,
+            "g_reco_loss": g_reco,
+            "g_sharp_loss": g_sharp,
             "d_gradient_pen": gp_mean_norm,
             "g_gradient_param": _tensor_mean_sq(g_grads),
             "d_gradient_param": d_grad_diag,
@@ -245,14 +331,15 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                 hr_score = critic(low_res, high_res)
                 fake_e = gen(low_res, std * draws.eval_noise)
                 fk_score = critic(low_res, fake_e)
-                metrics.update(
+                evals = dict(
                     d_loss=discriminator_loss(hr_score, fk_score),
                     d_real=torch.mean(hr_score),
                     d_fake=torch.mean(fk_score),
-                    **_generator_metrics(high_res, fake_e))
+                    **_generator_metrics(high_res, fake_e, group))
                 if tcfg.compute_spatial_ks:
-                    metrics["g_spatial_ks"] = M.spatial_ks_scalar(
+                    evals["g_spatial_ks"] = M.spatial_ks_scalar(
                         high_res, fake_e)
+                metrics.update(zip(evals, pmean(evals.values(), group)))
         else:
             metrics["d_loss"] = d_loss_val
         state.step += 1
@@ -263,11 +350,14 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
 
 def make_multi_train_step(cfg: GANConfig, steps_per_call: int,
                           feature_fn: Optional[FeatureFn] = None,
-                          detach_gp: Optional[bool] = None):
+                          detach_gp: Optional[bool] = None,
+                          mesh: Optional[Mesh] = None):
     """``(state, low_res_k, high_res_k, rng) -> (state, metrics)`` where the
     batch arguments are length-K sequences; K steps run and the metrics are
-    those of the LAST one."""
-    inner = make_train_step(cfg, feature_fn=feature_fn, detach_gp=detach_gp)
+    those of the LAST one.  ``mesh``: the global-batch step of
+    :func:`make_train_step`."""
+    inner = make_train_step(cfg, feature_fn=feature_fn, detach_gp=detach_gp,
+                            mesh=mesh)
     if steps_per_call <= 1:
         return inner
 
