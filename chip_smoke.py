@@ -106,6 +106,10 @@ ENSEMBLE_SHAPE = (64, 24, 24, 24, 128)
 TRAIN_MAIN_SHAPE = (16, 6, 8, 8, 128)
 # ... and in train_main on the prepared days (batch 2, 96 px, T=24, f32).
 PREPARE_SHAPE = (2, 24, 24, 24, 128)
+# ... and in each of the two ranks of train_main on the multi-GPU path
+# (8 rows of the batch of 16 each, f32).  The tile-parallel and
+# ensemble-parallel downscale ranks run whole groups of 16: MAIN_SHAPE.
+TRAIN_RANK_SHAPE = (8, 6, 8, 8, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
 NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
@@ -120,6 +124,8 @@ KS_RAGGED, KS_RAGGED_ARGS = (1, 3, 37, 53, 2), dict(patch_size=5,
 # ... and in train_main's step: 16 x 6 fields of 32 x 32, patch 32 // 10.
 KS_TRAIN_MAIN, KS_TRAIN_MAIN_ARGS = (16, 6, 32, 32, 2), dict(patch_size=3,
                                                             num_points=100)
+# ... and in each of its two ranks on the multi-GPU path.
+KS_TRAIN_RANK = (8, 6, 32, 32, 2)
 KS_TOL = 1e-6
 # The f32 flagship network on the card vs the CPU, output in m/s; and the
 # f32 train steps on the card vs the CPU, relative to max(1, |value|).
@@ -174,17 +180,21 @@ TOPO_M_TOL, TOPO_DERIVATIVE_TOL = 1e-3, 1e-5
 # The multi-GPU path: train_main at its default shape with the spatial KS,
 # 2 steps per run.  Ranks hold identical states (all-reduced gradients and
 # BatchNorm statistics, the same optimizer arithmetic).  A run over ranks
-# against the single process: f32, but the card's own run-to-run spread
-# bounds the agreement: two identical single-process runs on the H100
-# 80GB HBM3 (700 W) differed by up to 7.0e-5 in the parameters, BatchNorm
-# statistics and spectral vectors and by 3.5e-2 in Adam's moments relative
-# to each tensor's largest entry, the ranks against one process by 5.5e-5
-# and 3.8e-2 (cuDNN's backward kernels sum in no fixed order, and the
-# critic's kinks pass that on to its gradients).  The limits sit above
-# both, and far below a wrong reduction (a sum where a mean belongs moves
-# a moment by its own size).
+# against the single process: every tensor of the state (parameters,
+# BatchNorm statistics, spectral vectors, Adam's moments, counts) is held
+# against its movement in the single process's run, part by part
+# (state_error): ||got - want|| / ||want - start||.  An absolute
+# limit cannot tell a wrong update from a right one: Adam moves each
+# parameter by about the learning rate (1e-4) per step whatever its
+# gradient, so two steps move it by about 2e-4.  The limit sits above the
+# card's own run-to-run spread (two identical single-process runs; cuDNN's
+# backward kernels sum in no fixed order, and the critic's kinks pass that
+# on to its gradients), and each planted fault must exceed it.
 MULTI_STEPS = 2
-MULTI_TRAIN_TOL, MULTI_MOMENT_TOL = 2e-4, 0.1
+MULTI_TRAIN_TOL = 0.05
+# Faults planted in both ranks of a gloo run (see plant_fault), which the
+# comparison with the single process must catch.
+MULTI_FAULTS = ("sum where the mean belongs", "local BatchNorm statistics")
 MULTI_TIMEOUT = 600
 
 KERNELS = [{
@@ -291,7 +301,8 @@ def convlstm_kernel_phase() -> dict:
              (PREPARE_SHAPE, torch.float32, True),
              (RAGGED_SHAPE, torch.bfloat16, True),
              (RAGGED_SHAPE, torch.float32, False),
-             (NARROW_SHAPE, torch.bfloat16, True)]
+             (NARROW_SHAPE, torch.bfloat16, True),
+             (TRAIN_RANK_SHAPE, torch.float32, True)]
     main_err = None
     for i, (shape, dtype, hard) in enumerate(cases):
         zx, rk = convlstm_inputs(shape, dtype, seed=i)
@@ -500,7 +511,9 @@ def ks_kernel_phase() -> dict:
              ("one threshold, patch = H", (1, 2, 12, 20, 1),
               dict(patch_size=12, num_points=1), None),
              ("patch 16, two thresholds per word", (1, 2, 40, 51, 1),
-              dict(patch_size=16, num_points=30), "nans")]
+              dict(patch_size=16, num_points=30), "nans"),
+             ("train_main rank of 2", KS_TRAIN_RANK, KS_TRAIN_MAIN_ARGS,
+              None)]
     for i, (name, shape, kw, edit) in enumerate(cases):
         real, fake = ks_inputs(shape, seed=60 + i)
         if edit == "nans":
@@ -1540,10 +1553,12 @@ def prepare_path_phase() -> dict:
     return counts
 
 
-def run_ranks(job: str, world: int, backend: str, out: Path) -> list:
+def run_ranks(job: str, world: int, backend: str, out: Path,
+              fault: str = "") -> list:
     """Start ``world`` rank processes of this script on the card (``--rank
-    job ...``), joined over a free local port with ``backend``; wait for
-    them, stop them all if one fails, and return their reports."""
+    job ...``), joined over a free local port with ``backend`` and with
+    ``fault`` planted; wait for them, stop them all if one fails, and
+    return their reports."""
     from windtpu_torch.utils.hostcpu import free_tcp_port
 
     out.mkdir(parents=True, exist_ok=True)
@@ -1551,7 +1566,7 @@ def run_ranks(job: str, world: int, backend: str, out: Path) -> list:
     logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--rank", job,
-         str(r), str(world), str(port), str(out), backend],
+         str(r), str(world), str(port), str(out), backend, fault],
         stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
         for r in range(world)]
     deadline = time.monotonic() + MULTI_TIMEOUT
@@ -1577,12 +1592,38 @@ def run_ranks(job: str, world: int, backend: str, out: Path) -> list:
             for r in range(world)]
 
 
+def plant_fault(fault: str) -> None:
+    """Break this process's multi-GPU training in one of MULTI_FAULTS, by
+    replacing a function of the port in memory: every all-reduce mean of
+    the train step (gradients, losses, metrics) becomes a sum, or the
+    generator's BatchNorm takes each rank's own batch statistics in the
+    global-batch step."""
+    import torch.distributed as dist
+
+    from windtpu_torch.models.generator import Generator
+    from windtpu_torch.train import wgan_gp
+
+    if fault == MULTI_FAULTS[0]:
+        mean = wgan_gp.pmean
+
+        def summed(tensors, group):
+            n = 1 if group is None else dist.get_world_size(group)
+            return [t * n for t in mean(tensors, group)]
+        wgan_gp.pmean = summed
+    elif fault == MULTI_FAULTS[1]:
+        forward = Generator.forward
+        Generator.forward = (lambda self, image, noise, train=False,
+                             group=None: forward(self, image, noise, train))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
 def rank_main(job: str, rank: int, world: int, port: str, out: Path,
-              backend: str) -> int:
+              backend: str, fault: str = "") -> int:
     """One rank of the multi-GPU phase: ``train`` runs ``cli.train_main``
-    with the coordinator flags, ``downscale`` runs the flagship
-    ``api.downscale`` on a mesh; both write ``report<rank>.json`` and their
-    results into ``out``."""
+    with the coordinator flags (with ``fault`` planted first, if one is
+    named), ``downscale`` runs the flagship ``api.downscale`` on a mesh;
+    both write ``report<rank>.json`` and their results into ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -1591,6 +1632,8 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
     from windtpu_torch.ops.ks import spatial_ks
 
     report = {"rank": rank}
+    if fault:
+        plant_fault(fault)
     if job == "train":
         from windtpu_torch import cli
         from windtpu_torch.weights import export_train_state
@@ -1639,21 +1682,36 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
     return 0
 
 
-def state_errors(got: dict, want: dict):
-    """Two (error, key) pairs between flat train states: max |got - want|
-    over the parameters, BatchNorm statistics, spectral vectors and
-    counts; and over Adam's moments, relative to each tensor's largest
-    |entry|."""
+def state_error(got: dict, want: dict, start: dict) -> dict:
+    """The error between two flat train states for each part of the state
+    (g_params, g_batch_stats, g_opt/mu, ...), relative to that part's
+    movement in the run that took ``start`` to ``want``: ||got - want|| /
+    ||want - start||, L2 over all the part's tensors (a part that did not
+    move must be equal).  Over a whole part, so that a tensor whose
+    gradient is rounding noise (a bias in front of a LayerNorm), which
+    Adam still moves by the learning rate, does not stand for it.  Returns
+    {part: error} with the largest under "all"."""
     if sorted(got) != sorted(want):
         fail("the two train states have different keys")
-    model, moments = (0.0, ""), (0.0, "")
+    diff, moved = {}, {}
     for k, w in want.items():
-        e = float(np.abs(got[k] - w).max())
-        if "_opt/mu/" in k or "_opt/nu/" in k:
-            moments = max(moments, (e / max(1.0, float(np.abs(w).max())), k))
-        else:
-            model = max(model, (e, k))
-    return model, moments
+        w = w.astype(np.float64)
+        part = "/".join(k.split("/")[:2 if k.startswith(("g_opt", "d_opt"))
+                                     else 1])
+        diff[part] = diff.get(part, 0.0) + float(np.sum((got[k] - w) ** 2))
+        moved[part] = moved.get(part, 0.0) + float(np.sum((w - start[k])
+                                                          ** 2))
+    worst = {p: (np.sqrt(diff[p] / moved[p]) if moved[p] else
+                 (0.0 if diff[p] == 0.0 else float("inf")))
+             for p in diff}
+    worst["all"] = max(worst.values())
+    return worst
+
+
+def describe(worst: dict) -> str:
+    parts = ", ".join(f"{p} {e:.3e}" for p, e in sorted(worst.items())
+                      if p != "all")
+    return f"{worst['all']:.3e} ({parts})"
 
 
 def multi_gpu_phase() -> dict:
@@ -1665,20 +1723,36 @@ def multi_gpu_phase() -> dict:
     print("two ranks share the one card under gloo (NCCL refuses two ranks "
           "on one card): these runs test correctness, not speed; no "
           "multi-card number exists")
-    plain, again = (export_train_state(cli.train_main(TRAIN_ENTRY_ARGV + [
-        "--steps", str(MULTI_STEPS), "--checkpoint-dir",
-        str(work / f"plain{i}")])) for i in range(2))
-    (err, key), (m_err, m_key) = state_errors(again, plain)
+
+    def single(steps: int, name: str) -> dict:
+        return export_train_state(cli.train_main(TRAIN_ENTRY_ARGV + [
+            "--steps", str(steps), "--checkpoint-dir", str(work / name)]))
+
+    start = single(0, "start")
+    plain, again = single(MULTI_STEPS, "plain"), single(MULTI_STEPS, "again")
     print(f"train_main, one process, run 2 vs run 1 (the card's run-to-run "
-          f"spread): max_abs_err {err:.3e} at {key}, Adam's moments "
-          f"{m_err:.3e} at {m_key}")
+          f"spread), relative to each part's movement: "
+          f"{describe(state_error(again, plain, start))}")
     counts = {"convlstm_seq": 0, "spatial_ks": 0}
     seq = 6
-    for name, world, backend in (("nccl", 1, "nccl"),
-                                 ("gloo_train", 2, "gloo")):
-        reports = run_ranks("train", world, backend, work / name)
+    problems = []
+    runs = ([("nccl", 1, "nccl", ""), ("gloo_train", 2, "gloo", "")]
+            + [(f"fault{i}", 2, "gloo", f)
+               for i, f in enumerate(MULTI_FAULTS)])
+    for name, world, backend, fault in runs:
+        reports = run_ranks("train", world, backend, work / name, fault)
         states = [dict(np.load(work / name / f"state{r}.npz"))
                   for r in range(world)]
+        worst = state_error(states[0], plain, start)
+        if fault:
+            caught = worst["all"] > MULTI_TRAIN_TOL
+            print(f"train_main {backend} at {world} ranks with a planted "
+                  f"fault, {fault}: vs one process {describe(worst)} (tol "
+                  f"{MULTI_TRAIN_TOL:.0e}): "
+                  f"{'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                problems.append(f"the limit misses the fault {fault}")
+            continue
         for rep in reports:
             print(f"train_main {backend} rank {rep['rank']} of {world} on "
                   f"{rep['device']} ({rep['backend']}), batch 16 / {world}"
@@ -1689,26 +1763,29 @@ def multi_gpu_phase() -> dict:
                   f"{rep['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
                   f"step")
             if rep["k1"] != 5 * seq * MULTI_STEPS or rep["k2"] != MULTI_STEPS:
-                fail(f"train_main {backend} rank {rep['rank']}: "
-                     f"convlstm_seq {rep['k1']} (expected "
-                     f"{5 * seq * MULTI_STEPS}), spatial_ks {rep['k2']} "
-                     f"(expected {MULTI_STEPS})")
+                problems.append(
+                    f"train_main {backend} rank {rep['rank']}: convlstm_seq "
+                    f"{rep['k1']} (expected {5 * seq * MULTI_STEPS}), "
+                    f"spatial_ks {rep['k2']} (expected {MULTI_STEPS})")
             counts["convlstm_seq"] += rep["k1"]
             counts["spatial_ks"] += rep["k2"]
         for r in range(1, world):
-            (err, _), (m_err, _) = state_errors(states[r], states[0])
-            print(f"train_main {backend}: rank {r} vs rank 0 max_abs_err "
-                  f"{err:.3e}, Adam's moments {m_err:.3e} (tol 0)")
-            if err != 0.0 or m_err != 0.0:
-                fail(f"train_main {backend}: the ranks' states differ")
-        (err, key), (m_err, m_key) = state_errors(states[0], plain)
-        print(f"train_main {backend} at {world} rank(s) vs one process: "
-              f"max_abs_err {err:.3e} at {key} (tol {MULTI_TRAIN_TOL:.0e}), "
-              f"Adam's moments {m_err:.3e} at {m_key} (tol "
-              f"{MULTI_MOMENT_TOL:.0e})")
-        if not (err <= MULTI_TRAIN_TOL and m_err <= MULTI_MOMENT_TOL):
-            fail(f"train_main {backend} at {world} rank(s) disagrees with "
-                 f"the single process")
+            differ = [k for k in plain
+                      if not np.array_equal(states[r][k], states[0][k])]
+            print(f"train_main {backend}: rank {r} vs rank 0: "
+                  f"{len(differ)} of {len(plain)} tensors differ (tol 0)")
+            if differ:
+                problems.append(f"train_main {backend}: the ranks' states "
+                                f"differ at {differ[:3]}")
+        ok = worst["all"] <= MULTI_TRAIN_TOL
+        print(f"train_main {backend} at {world} rank(s) vs one process, "
+              f"relative to each part's movement: {describe(worst)} (tol "
+              f"{MULTI_TRAIN_TOL:.0e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            problems.append(f"train_main {backend} at {world} rank(s) "
+                            f"disagrees with the single process")
+    if problems:
+        fail("; ".join(problems))
 
     reports = run_ranks("downscale", 2, "gloo", work / "downscale")
     era5, raster = era5_and_dem(21, 42, 24, seed=0)
@@ -1833,9 +1910,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--rank"]:          # a rank of the multi-GPU phase
-        job, rank, world, port, out, backend = sys.argv[2:8]
+        job, rank, world, port, out, backend, fault = sys.argv[2:9]
         return rank_main(job, int(rank), int(world), port, Path(out),
-                         backend)
+                         backend, fault)
 
     chosen = sys.argv[1:]
     unknown = sorted(set(chosen) - set(PHASES))

@@ -177,6 +177,16 @@ def test_downscale_on_a_mesh_equals_single_device(run, members):
                                       "texture_gate": True}
 
 
+def test_downscale_reuses_its_mesh(run):
+    """Three downscale calls over the ranks make no process group: the
+    inference meshes are made once, and an axis over every rank holds the
+    world's group."""
+    _, _, infos = run
+    for info in infos:
+        assert info["meshes"] == {"groups_made": 0, "reused": [True, True],
+                                  "world_groups": [True, True, True]}
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_grouped_origins_pad_like_jax(n):
     for h, w, t, group in ((64, 72, 4, 2), (48, 48, 4, 3), (97, 203, 9, 16)):

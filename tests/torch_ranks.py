@@ -106,13 +106,13 @@ def parallel(rank, world, workdir):
     import torch
 
     from windtpu_torch.core.config import GANConfig, ModelConfig, TrainConfig
-    from windtpu_torch.core.mesh import (make_mesh, psum, replicate,
-                                         shard_batch)
+    from windtpu_torch.core.mesh import make_mesh, psum, shard_batch
     from windtpu_torch.metrics.metrics import extreme_weighted_rmse
     from windtpu_torch.models.layers import TimeBatchNorm
     from windtpu_torch.parallel import make_sharded_train_step
-    from windtpu_torch.parallel.distributed import (global_data_mesh,
-                                                    seed_on_mesh)
+    from windtpu_torch.parallel.distributed import (agree,
+                                                    global_data_mesh,
+                                                    replicate_to_mesh)
     from windtpu_torch.train.state import create_train_state
     from windtpu_torch.train.wgan_gp import make_train_step
     from windtpu_torch.weights import export_train_state, load_train_state
@@ -152,13 +152,13 @@ def parallel(rank, world, workdir):
     except ValueError as e:
         checks["too_big"] = str(e)
     x = torch.full((3,), float(rank))
-    replicate(mesh, [x])
+    replicate_to_mesh(mesh, [x])
     checks["replicated"] = x.tolist()
     try:
-        seed_on_mesh(mesh, 7 + rank)
+        agree(7 + rank, "the seed")
     except RuntimeError as e:
         checks["seed_disagreement"] = str(e)
-    checks["seed"] = seed_on_mesh(mesh, 7)
+    checks["seed"] = agree(7, "the seed")
     v = torch.tensor(float(rank + 1), requires_grad=True)
     (psum(v, mesh.group("data")) * (rank + 1)).backward()
     checks["psum_grad"] = float(v.grad)
@@ -178,11 +178,10 @@ def parallel(rank, world, workdir):
         bn.bn.bias.fill_(0.25)
         bn.bn.mean.zero_()
         bn.bn.var.fill_(1.0)
-    bn.group = mesh.group("data")
     xb = torch.from_numpy(2 + 3 * rng.standard_normal((4, 2, 5, 5, 3),
                                                       dtype=np.float32))
     xb = shard_batch(mesh, xb).clone().requires_grad_()
-    y = bn(xb, train=True)
+    y = bn(xb, train=True, group=mesh.group("data"))
     (y * torch.arange(1.0, 4.0)).sum().backward()
     out["bn_y"], out["bn_grad"] = y.detach().numpy(), xb.grad.numpy()
     out["bn_mean"], out["bn_var"] = bn.bn.mean.numpy(), bn.bn.var.numpy()
@@ -197,6 +196,7 @@ def tile(rank, world, workdir):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from windtpu_torch import api
     from windtpu_torch.core.config import (GANConfig, InferenceConfig,
@@ -244,12 +244,28 @@ def tile(rank, world, workdir):
     net = WindDownscalingGAN(GANConfig(model=ModelConfig(**kw["network"])),
                              device="cpu")
     net.texture_gate = load_gate_npz(api.BUNDLED_GATE)
-    for members in (1, world):
-        res = api.downscale(*era5_and_dem(tds), network=net, seed=3,
-                            ensemble_members=members, device="cpu")
-        info[str(members)] = api.last_run_info()
-        for var in ("u10", "v10"):
-            out[f"downscale{members}/{var}"] = np.asarray(res[var].values)
+    made = []
+    new_group = dist.new_group
+    dist.new_group = lambda *a, **k: made.append(a) or new_group(*a, **k)
+    try:
+        for members in (1, world, 1):
+            res = api.downscale(*era5_and_dem(tds), network=net, seed=3,
+                                ensemble_members=members, device="cpu")
+            info[str(members)] = api.last_run_info()
+            for var in ("u10", "v10"):
+                out[f"downscale{members}/{var}"] = np.asarray(
+                    res[var].values)
+    finally:
+        dist.new_group = new_group
+    # predict(mesh="auto") reuses the meshes made above, whose axes over
+    # every rank hold the world's group.
+    info["meshes"] = dict(
+        groups_made=len(made),
+        reused=[api.inference_mesh(1) is data,
+                api.inference_mesh(world) is api.inference_mesh(world)],
+        world_groups=[data.group("data") is dist.group.WORLD,
+                      ens.group("ensemble") is dist.group.WORLD,
+                      ens.group("data") is None])
     np.savez(workdir / f"rank{rank}.npz", **out)
     (workdir / f"rank{rank}.json").write_text(json.dumps(info))
 

@@ -114,7 +114,8 @@ def inference_mesh(ensemble_members: int = 1,
     of the member count that fits (one member per rank), and the rest of
     the ranks on a ``data`` axis that splits the patch groups (tile
     parallelism).  None for one rank: the single-device engine needs no
-    mesh.  Every rank must call it alike (it creates process groups)."""
+    mesh.  Every rank must call it alike (the first call of a shape makes
+    its process groups; later calls return that mesh)."""
     n = mesh_world()[1] if world is None else world
     axes = inference_mesh_axes(ensemble_members, n)
     return None if axes is None else make_mesh(axes)
@@ -262,12 +263,6 @@ def predict(
     print(f"Applying model to {plan.num_patches} patches")
     member_axis = ensemble_members > 1
     seeds = member_seeds(seed, ensemble_members) if member_axis else [seed]
-    if isinstance(mesh, str) and mesh == "auto":
-        mesh = inference_mesh(ensemble_members)
-    ensemble_sharded = (member_axis and mesh is not None
-                        and "ensemble" in mesh.axis_names
-                        and ensemble_members % mesh.axis_size("ensemble")
-                        == 0)
     if streaming == "auto":
         # Every rank ends with every member's canvas, so the whole
         # ensemble counts on each, as on one device.
@@ -296,6 +291,12 @@ def predict(
             pred = apply_gate_targeted_np(gate_target, gate_floor, pred)
         mode, mesh, ensemble_sharded = "streaming", None, False
     else:
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = inference_mesh(ensemble_members)
+        ensemble_sharded = (member_axis and mesh is not None
+                            and "ensemble" in mesh.axis_names
+                            and ensemble_members
+                            % mesh.axis_size("ensemble") == 0)
         pred, _ = downscale_field(network.generator, field, mcfg, icfg,
                                   plan=plan, device=dev, mesh=mesh,
                                   **members)

@@ -67,9 +67,9 @@ class Mesh:
     ``coords`` is this rank's coordinate on each axis (None off the mesh);
     ``groups`` maps each axis to the process group of the ranks that share
     this rank's other coordinates, or None where the axis has one rank and
-    needs no collective.  In a process group of one rank every axis holds
-    the world's group, so that a one-rank run goes through the backend's
-    collectives as a larger run does."""
+    needs no collective.  An axis over every rank holds the world's group;
+    so in a process group of one rank every axis does, and a one-rank run
+    goes through the backend's collectives as a larger run does."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -101,33 +101,52 @@ class Mesh:
         return self.groups.get(axis)
 
 
+# The meshes made over the current process group (_WORLD), by their axes;
+# emptied when the group changes.
+_MESHES: Dict[tuple, Mesh] = {}
+_WORLD = None
+
+
 def make_mesh(axis_shapes: Optional[Mapping[str, int]] = None) -> Mesh:
-    """Build a mesh over the ranks of the process group (one rank without
+    """The mesh over the ranks of the process group (one rank without
     one).  Default: all ranks on a single ``data`` axis.  Every rank must
     call it with the same axes: it creates each axis's process groups, and
-    ``torch.distributed.new_group`` needs every rank, in the same order."""
+    ``torch.distributed.new_group`` needs every rank, in the same order.
+    An axis over every rank takes the world's group; the others' groups
+    are made once per process group, and a mesh of the same axes is the
+    one made before."""
+    global _WORLD
     rank, n_ranks = world()
     axes = mesh_axes(axis_shapes, n_ranks)
     names, sizes = tuple(axes), tuple(axes.values())
+    initialized = dist.is_available() and dist.is_initialized()
+    pg = dist.group.WORLD if initialized else None
+    if _WORLD is not pg:
+        _MESHES.clear()
+        _WORLD = pg
+    key = tuple(axes.items())
+    if key in _MESHES:
+        return _MESHES[key]
     need = math.prod(sizes)
     grid = [tuple(c) for c in itertools.product(*map(range, sizes))]
     coords = grid[rank] if rank < need else None
     groups: Dict[str, Optional[object]] = {name: None for name in names}
-    if dist.is_available() and dist.is_initialized():
-        if n_ranks == 1:
-            groups = {name: dist.group.WORLD for name in names}
-        else:
-            for a, name in enumerate(names):
-                if sizes[a] == 1:
-                    continue
-                others = [range(s) for i, s in enumerate(sizes) if i != a]
-                for rest in itertools.product(*others):
-                    members = [grid.index(rest[:a] + (i,) + rest[a:])
-                               for i in range(sizes[a])]
-                    g = dist.new_group(members)
-                    if rank in members:
-                        groups[name] = g
-    return Mesh(names, sizes, coords, groups)
+    if initialized:
+        for a, name in enumerate(names):
+            if sizes[a] == n_ranks:
+                groups[name] = dist.group.WORLD
+                continue
+            if sizes[a] == 1:
+                continue
+            others = [range(s) for i, s in enumerate(sizes) if i != a]
+            for rest in itertools.product(*others):
+                members = [grid.index(rest[:a] + (i,) + rest[a:])
+                           for i in range(sizes[a])]
+                g = dist.new_group(members)
+                if rank in members:
+                    groups[name] = g
+    mesh = _MESHES[key] = Mesh(names, sizes, coords, groups)
+    return mesh
 
 
 def collective_device() -> torch.device:
@@ -186,18 +205,6 @@ def pmean(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     return out
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, torch.nn.Module):
-        return list(tree.parameters()) + list(tree.buffers())
-    if isinstance(tree, Mapping):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    raise TypeError(f"cannot replicate a {type(tree).__name__}")
-
-
 def shard_batch(mesh: Mesh, tree, axis: str = "data"):
     """This rank's contiguous rows of a global batch (a tensor or array, or
     a tuple of them): rank ``i`` of the ``axis`` group takes rows ``[i *
@@ -210,14 +217,3 @@ def shard_batch(mesh: Mesh, tree, axis: str = "data"):
                          f"the {n} ranks of the {axis!r} axis")
     per = tree.shape[0] // n
     return tree[i * per:(i + 1) * per]
-
-
-@torch.no_grad()
-def replicate(mesh: Mesh, tree):
-    """Overwrite every tensor of ``tree`` (tensors, modules' parameters and
-    buffers, lists and dicts of them) with rank 0's, in place, by
-    broadcast over the whole process group.  Returns ``tree``."""
-    if world()[1] > 1:
-        for t in _leaves(tree):
-            dist.broadcast(t.data, src=0)
-    return tree

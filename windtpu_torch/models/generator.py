@@ -43,7 +43,10 @@ class Generator(nn.Module):
     (B, T, I, I, in_channels) and noise (B, T, I, I, noise_channels) ->
     float32 (B, T, I, I, out_channels).  ``train=True`` normalizes with the
     batch statistics and advances the BatchNorm running statistics and the
-    spectral-norm ``u`` vectors.  The ConvLSTM is built on the CUDA kernel
+    spectral-norm ``u`` vectors; with ``group`` (a process group) the
+    batch statistics are those of the global batch split over its ranks
+    (:class:`windtpu_torch.models.layers.TimeBatchNorm`).  The ConvLSTM
+    is built on the CUDA kernel
     (:func:`windtpu_torch.ops.convlstm.convlstm_seq`)."""
 
     def __init__(self, config: ModelConfig):
@@ -84,20 +87,20 @@ class Generator(nn.Module):
                               dtype=dt)
 
     def forward(self, image: torch.Tensor, noise: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, group=None) -> torch.Tensor:
         x = torch.cat([image, noise], dim=-1).to(self.dtype)
-        x = self.bn1(self.down1(x, train), train)
+        x = self.bn1(self.down1(x, train), train, group)
         res_2 = x
-        x = self.bn2(self.down2(x, train), train)
+        x = self.bn2(self.down2(x, train), train, group)
         res_4 = x
         x = self.convlstm(x)
-        x = self.bn3(self.mid(x, train), train)
+        x = self.bn3(self.mid(x, train), train, group)
         x = torch.cat([x, res_4], dim=-1)
-        x = self.bn4(self.up1(x, train), train)
+        x = self.bn4(self.up1(x, train), train, group)
         x = torch.cat([x, res_2], dim=-1)
         x = L.bilinear_upsample_2x(x)
         x = self.up2(x) if self.wide_head else self.up2_conv(x)
-        x = self.bn5(x, train)
+        x = self.bn5(x, train, group)
         return self.out(x).float()
 
 

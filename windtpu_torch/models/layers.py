@@ -256,12 +256,12 @@ class TimeBatchNorm(nn.Module):
     gradient flow through them, and moves the running statistics by
     ``ra = 0.99 * ra + 0.01 * batch`` with that same biased variance.
 
-    ``group``, a process group (None: this process's batch alone), makes
-    the batch the global one split over its ranks: the f32 per-channel
-    sum, sum of squares and count are all-reduced over it, differentiably,
-    before the same formula; the running statistics then move alike on
-    every rank.  The train step sets it for its global-batch semantics
-    (:func:`batch_norm_group`)."""
+    ``group``, a process group passed with ``train=True`` (None: this
+    process's batch alone), makes the batch the global one split over its
+    ranks: the f32 per-channel sum, sum of squares and count are
+    all-reduced over it, differentiably, before the same formula; the
+    running statistics then move alike on every rank.  The train step
+    passes it for its global-batch semantics."""
 
     momentum = 0.99
     eps = 1e-3
@@ -270,9 +270,9 @@ class TimeBatchNorm(nn.Module):
         super().__init__()
         self.bn = _BatchNormParams(features)
         self.dtype = dtype
-        self.group = None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> torch.Tensor:
         dt = self.dtype or x.dtype
         bn = self.bn
         if not train:
@@ -282,7 +282,7 @@ class TimeBatchNorm(nn.Module):
             return _unfold(y.permute(0, 2, 3, 1), x.shape[0])
         xf = x.float()
         dims = (0, 1, 2, 3)
-        if self.group is None:
+        if group is None:
             mean = xf.mean(dim=dims)
             var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
                               min=0.0)
@@ -290,7 +290,7 @@ class TimeBatchNorm(nn.Module):
             c = xf.shape[-1]
             count = xf.new_full((1,), xf.numel() // c)
             sums = psum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
-                                   count]), self.group)
+                                   count]), group)
             mean = sums[:c] / sums[-1]
             var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
                               min=0.0)
@@ -299,14 +299,6 @@ class TimeBatchNorm(nn.Module):
             bn.var.mul_(self.momentum).add_((1 - self.momentum) * var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * bn.scale) + bn.bias
         return y.to(dt)
-
-
-def batch_norm_group(module: nn.Module, group) -> None:
-    """Set the process group of every :class:`TimeBatchNorm` in
-    ``module`` (None: per-process batch statistics)."""
-    for m in module.modules():
-        if isinstance(m, TimeBatchNorm):
-            m.group = group
 
 
 class _LayerNormParams(nn.Module):

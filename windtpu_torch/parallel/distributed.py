@@ -13,14 +13,13 @@ from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Optional
+from typing import List, Mapping, Optional
 
 import torch
 import torch.distributed as dist
 
 from windtpu_torch.core.device import resolve_device
-from windtpu_torch.core.mesh import (Mesh, collective_device, make_mesh,
-                                     replicate, world)
+from windtpu_torch.core.mesh import Mesh, collective_device, make_mesh, world
 
 # torchrun's variables, which name the process group without arguments.
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
@@ -97,19 +96,40 @@ def global_data_mesh(ensemble: int = 1) -> Mesh:
     return make_mesh({"data": n})
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters()) + list(tree.buffers())
+    if isinstance(tree, Mapping):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    raise TypeError(f"cannot replicate a {type(tree).__name__}")
+
+
+@torch.no_grad()
 def replicate_to_mesh(mesh: Mesh, tree):
-    """Give every rank rank 0's copy of ``tree`` (tensors, modules, lists
-    and dicts of them), in place, by broadcast: the counterpart of the JAX
-    package's assembling of a replicated state from process-local copies,
-    which its callers must keep identical; here rank 0's wins."""
-    return replicate(mesh, tree)
+    """Overwrite every tensor of ``tree`` (tensors, modules' parameters and
+    buffers, lists and dicts of them) with rank 0's, in place, by
+    broadcast over the whole process group; returns ``tree``.  The
+    counterpart of the JAX package's assembling of a replicated state from
+    process-local copies, which its callers must keep identical; here rank
+    0's wins.  (JAX's ``core.mesh.replicate`` places one process's array on
+    its devices; with one process per device there is nothing to place.)"""
+    if world()[1] > 1:
+        for t in _leaves(tree):
+            dist.broadcast(t.data, src=0)
+    return tree
 
 
 def agree(value: int, what: str) -> int:
     """``value`` checked against rank 0's by broadcast: every rank raises
     when any rank disagrees (one all-reduce of the ranks' values into a
     zero-filled tensor), so no rank is left waiting on another that
-    stopped."""
+    stopped.  With the seed as ``value`` it is the counterpart of
+    ``key_on_mesh``: the ranks' generators seeded with it draw the same
+    numbers."""
     rank, n = world()
     if n == 1:
         return int(value)
@@ -121,9 +141,3 @@ def agree(value: int, what: str) -> int:
                            f"{seen.tolist()} (rank 0 first)")
     return int(seen[0])
 
-
-def seed_on_mesh(mesh: Mesh, seed: int) -> int:
-    """A seed every rank holds, checked across ranks (the counterpart of
-    ``key_on_mesh``): the ranks' generators seeded with it draw the same
-    numbers."""
-    return agree(seed, "the seed")

@@ -14,8 +14,7 @@ import torch.distributed as dist
 from windtpu_torch.core.config import GANConfig
 from windtpu_torch.core.mesh import Mesh, world
 from windtpu_torch.features import get_encoder_fn
-from windtpu_torch.parallel.distributed import (agree, replicate_to_mesh,
-                                                seed_on_mesh)
+from windtpu_torch.parallel.distributed import agree, replicate_to_mesh
 from windtpu_torch.train import checkpoint as ckpt
 from windtpu_torch.train.state import GANTrainState, create_train_state
 from windtpu_torch.train.wgan_gp import make_multi_train_step, make_train_step
@@ -98,7 +97,7 @@ def train(
         for opt in (state.g_opt, state.d_opt):
             opt.count = agree(opt.count, "the optimizer step count")
         state.step = agree(state.step, "the step")
-        seed = seed_on_mesh(mesh, seed)
+        seed = agree(seed, "the seed")
         if world()[1] > 1:
             dist.barrier()
     rng = torch.Generator(device=state.device).manual_seed(seed)

@@ -31,8 +31,8 @@ data-parallel semantics:
   sharded ``jit`` computes and ``train_main`` runs): every rank draws the
   global batch's random numbers from the same generator and keeps its
   rows, the generator's BatchNorm takes the global batch's statistics
-  (``TimeBatchNorm.group``), and the gradients and metrics are averaged
-  over the ranks.  The critic normalises per sample, so this equals the
+  (the generator's ``group`` argument), and the gradients and metrics
+  are averaged over the ranks.  The critic normalises per sample, so this equals the
   single-process step on the whole batch up to summation order;
 * the ``shard_map`` step (``pmean_step=True``,
   :func:`windtpu_torch.parallel.make_sharded_train_step`): each rank draws
@@ -56,7 +56,7 @@ from torch import nn
 from windtpu_torch.core.config import GANConfig, TrainConfig
 from windtpu_torch.core.mesh import Mesh, pmean
 from windtpu_torch.metrics import metrics as M
-from windtpu_torch.models.layers import TimeBatchNorm, batch_norm_group
+from windtpu_torch.models.layers import TimeBatchNorm
 from windtpu_torch.train.losses import (
     discriminator_loss,
     generator_adversarial_loss,
@@ -215,6 +215,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
     n_shards = mesh.axis_size(axis) if mesh is not None else 1
     shard = mesh.axis_index(axis) if mesh is not None else 0
     global_batch = mesh is not None and not pmean_step
+    bn_group = group if global_batch else None
 
     def step_draws(state, low_res, high_res, rng, draws):
         b = low_res.shape[0]
@@ -236,13 +237,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                    draws: Optional[StepDraws] = None):
         low_res, high_res = _batch(state, cfg, low_res, high_res)
         draws = step_draws(state, low_res, high_res, rng, draws)
-        if global_batch:
-            batch_norm_group(state.generator, group)
-        try:
-            return body(state, low_res, high_res, draws)
-        finally:
-            if global_batch:
-                batch_norm_group(state.generator, None)
+        return body(state, low_res, high_res, draws)
 
     def body(state, low_res, high_res, draws):
         gen, critic = state.generator, state.discriminator
@@ -255,7 +250,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
         for it in range(tcfg.n_critic):
             d = draws.critic[it]
             with torch.no_grad():
-                fake = gen(low_res, std * d.noise, train=True)
+                fake = gen(low_res, std * d.noise, train=True, group=bn_group)
                 mixed = d.eps * high_res + (1.0 - d.eps) * fake
             mixed.requires_grad_()
             # Gradient penalty: the critic differentiated for its image
@@ -286,7 +281,8 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
             d_grad_diag = _tensor_mean_sq(d_grads)
 
         # ---- generator update ------------------------------------------
-        fake = gen(low_res, std * draws.gen_noise, train=True)
+        fake = gen(low_res, std * draws.gen_noise, train=True,
+                   group=bn_group)
         g_adv = g_reco = g_sharp = zero
         if tcfg.adversarial_coefficient > 0:   # 0 removes the critic call
             scores = critic(low_res, fake, train=True)
@@ -297,7 +293,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
         if tcfg.sharpness_coefficient > 0:
             g_sharp = tcfg.sharpness_coefficient * highpass_energy_ratio_loss(
                 fake, high_res, sigma=tcfg.sharpness_sigma,
-                group=group if global_batch else None)
+                group=bn_group)
         g_loss = g_adv + g_reco + g_sharp
         *g_grads, g_loss, g_adv, g_reco, g_sharp = pmean(
             _grads_or_zeros(g_loss, g_params)
