@@ -69,7 +69,19 @@ Phases, each of which ends the script with a nonzero exit on failure:
     bf16 limit) and a 2-member ensemble over an ``ensemble`` axis of 2
     (against the one-member runs of its seeds, exactly).  Each rank's
     seconds, peak memory, launches and all-reduce bytes;
-12. one JSON line with the kernels, then the result line.
+12. A13 path: one train step at the training path's shape from one saved
+    state and one set of draws under each ``TrainConfig.remat`` mode
+    (False twice, True, "save_scans" and "d_only" with ``remat_gp``,
+    "d_only" without), in bf16 and in f32 (there with cuDNN's
+    deterministic algorithms): seconds, peak memory (and of each part of
+    the step), both kernels' launches and the metrics and forward-written
+    state against remat=False; two f32
+    steps under "save_scans" on the card against the CPU; the texture
+    gate's device half (``predict_log_energy`` on the flagship inference
+    field against the host twin, with both times, and ``apply_gate`` on
+    the card against the CPU and the split path); ``profile_region``
+    around a flagship downscale, whose trace must hold K1;
+13. one JSON line with the kernels, then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -196,6 +208,27 @@ MULTI_TRAIN_TOL = 0.05
 # comparison with the single process must catch.
 MULTI_FAULTS = ("sum where the mean belongs", "local BatchNorm statistics")
 MULTI_TIMEOUT = 600
+# The A13 path.  One train step at the training path's shape from one
+# saved state and one set of draws under each remat mode, in this order:
+# (name, TrainConfig.remat, remat_gp).  The state the forwards write
+# (spectral vectors, BatchNorm running statistics) within REMAT_STATE_TOL
+# relative of the first run's, and each metric within REMAT_METRIC_TOL
+# relative.  Measured on the H100, two identical remat=False runs already
+# differ: in bf16 by bf16 steps of the critic's mean score (up to 1.1e-2
+# relative on d_fake), in f32 with cuDNN's default algorithms by 5.4e-7 in
+# the critic's spectral vectors and 2.5e-4 in d_fake (its backward sums in
+# no fixed order, and Adam and the critic's kinks pass that on).  So the
+# bf16 pass (cuDNN's defaults, as a user runs it) holds the state and
+# prints the metrics beside that spread, and the f32 pass, with cuDNN's
+# deterministic algorithms, holds both.
+REMAT_RUNS = [("False", False, False), ("False again", False, False),
+              ("True+remat_gp", True, True),
+              ("save_scans+remat_gp", "save_scans", True),
+              ("d_only+remat_gp", "d_only", True), ("d_only", "d_only", False)]
+REMAT_METRIC_TOL, REMAT_STATE_TOL = 1e-3, 1e-6
+# The texture gate's device half against its host twin (complex64 against
+# complex128 FFTs) and the CPU, in log energy and m/s.
+GATE_TOL = 1e-4
 
 KERNELS = [{
     "name": "convlstm_seq",
@@ -778,7 +811,8 @@ def training_reference_phase() -> None:
         train_step_pair(cfg, feature_fns)
 
 
-def train_step_pair(cfg, feature_fns) -> None:
+def train_step_pair(cfg, feature_fns,
+                    name: str = "training reference") -> None:
     import torch
 
     from windtpu_torch.train.state import create_train_state
@@ -832,7 +866,7 @@ def train_step_pair(cfg, feature_fns) -> None:
         worst_param = max(worst_param, max(
             float(np.abs(got_state[k] - want_state[k]).max())
             for k in sample))
-    print(f"training reference: f32, batch 2, 24 px, T=4, F=128/16, "
+    print(f"{name}: f32, batch 2, 24 px, T=4, F=128/16, "
           f"reconstruction coefficient {coefficient}"
           + (f" (g_reco_loss {metrics['cuda']['g_reco_loss']:.4f})"
              if coefficient > 0 else "")
@@ -1613,7 +1647,8 @@ def plant_fault(fault: str) -> None:
     elif fault == MULTI_FAULTS[1]:
         forward = Generator.forward
         Generator.forward = (lambda self, image, noise, train=False,
-                             group=None: forward(self, image, noise, train))
+                             group=None, **kw: forward(self, image, noise,
+                                                       train, **kw))
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -1831,6 +1866,220 @@ def multi_gpu_phase() -> dict:
     return counts
 
 
+def relative_errors(got: dict, want: dict) -> dict:
+    """Per key: max |got - want| / max |want| (0 where both are 0)."""
+    out = {}
+    for k, w in want.items():
+        w, g = np.asarray(w, np.float64), np.asarray(got[k], np.float64)
+        scale = float(np.abs(w).max())
+        diff = float(np.abs(g - w).max())
+        out[k] = diff / scale if scale > 0 else diff
+    return out
+
+
+def worst(errors: dict) -> str:
+    key = max(errors, key=errors.get)
+    return f"{errors[key]:.3e} ({key})"
+
+
+def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
+    """One train step at the training path's shape in ``dtype`` under each
+    of REMAT_RUNS, from one saved state and one set of draws, with cuDNN's
+    ``deterministic`` algorithms or its defaults; returns the K1 and K2
+    launches of them all, and appends what exceeds a limit to
+    ``problems``."""
+    import torch
+
+    from windtpu_torch import api
+    from windtpu_torch.network import WindDownscalingGAN
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.train.wgan_gp import draw_step_noise, make_train_step
+    from windtpu_torch.weights import export_train_state, load_train_state
+
+    # Batch 2, 96 px, T=24, F=128/16, n_critic=3, metrics and spatial KS.
+    base = api.flagship_config()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, compute_dtype=dtype),
+        train=dataclasses.replace(base.train, batch_size=2,
+                                  compute_metrics=True,
+                                  compute_spatial_ks=True))
+    state = WindDownscalingGAN(cfg).load_weights(
+        api.BUNDLED_GENERATOR).state
+    warm, batch = train_batches(cfg, 2, seed=0)
+    rng = torch.Generator(device="cuda").manual_seed(5)
+    # Warm-up, through the checkpoint too: its first call in a process
+    # takes seconds of set-up.
+    make_train_step(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, remat=True, remat_gp=True)))(state, *warm, rng)
+    saved = export_train_state(state)
+    draws = draw_step_noise(cfg, batch[0].shape, batch[1].shape[-1], rng,
+                            "cuda")
+    seq = cfg.model.sequence_length
+    runs, total = {}, {"convlstm_seq": 0, "spatial_ks": 0}
+    # The peak of each part of the step: every optimizer update ends one
+    # (the n_critic critic updates, then the generator's); the metric
+    # recompute follows.
+    parts = []
+
+    def marked(update):
+        def step(grads):
+            parts.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            update(grads)
+        return step
+
+    for opt in (state.d_opt, state.g_opt):
+        opt.step = marked(opt.step)
+    label = f"{dtype}, {'deterministic' if deterministic else 'default'} cuDNN"
+    torch.backends.cudnn.deterministic = deterministic
+    for name, remat, remat_gp in REMAT_RUNS:
+        mode = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, remat=remat, remat_gp=remat_gp))
+        step = make_train_step(mode)
+        load_train_state(state, saved)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        convlstm_seq.launches = spatial_ks.launches = 0
+        parts.clear()
+        t0 = time.perf_counter()
+        _, metrics = step(state, *batch, draws=draws)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        parts.append(torch.cuda.max_memory_allocated())
+        mib = [b / 2**20 for b in parts]
+        k1, k2 = convlstm_seq.launches, spatial_ks.launches
+        total["convlstm_seq"] += k1
+        total["spatial_ks"] += k2
+        written = {k: v for k, v in export_train_state(state).items()
+                   if k.split("/")[0] in ("g_batch_stats", "g_spectral",
+                                          "d_spectral")}
+        runs[name] = (metrics, written)
+        # The generator's five forwards (n_critic=3, the update, the
+        # metrics) run K1 once per time step each; remat=True runs the
+        # update's forward again in the backward, "save_scans" keeps its
+        # ConvLSTM.
+        want_k1 = (5 + (remat is True)) * seq
+        if k1 != want_k1 or k2 != 1:
+            fail(f"remat {name}: convlstm_seq launched {k1} times "
+                 f"(expected {want_k1}), spatial_ks {k2} (expected 1)")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"remat {name}: metrics {bad} are not finite")
+        base_metrics, base_written = runs["False"]
+        m_err = relative_errors(metrics, base_metrics)
+        s_err = relative_errors(written, base_written)
+        print(f"remat {name} [{label}]: {seconds:.3f} s per step, peak "
+              f"memory allocated {max(mib):.1f} MiB (critic updates "
+              f"{max(mib[:-2]):.1f}, generator update {mib[-2]:.1f}, "
+              f"metrics {mib[-1]:.1f}), convlstm_seq launches {k1}, "
+              f"spatial_ks {k2}; against remat False: state written in the "
+              f"forwards {worst(s_err)}, metrics {worst(m_err)}; relative "
+              f"metric differences above 1e-6: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
+                  m_err.items(), key=lambda kv: -kv[1]) if v > 1e-6))
+        if deterministic and max(m_err.values()) > REMAT_METRIC_TOL:
+            problems.append(f"remat {name} [{label}]: metrics off by "
+                            f"{worst(m_err)} (tol {REMAT_METRIC_TOL:.0e})")
+        if max(s_err.values()) > REMAT_STATE_TOL:
+            problems.append(f"remat {name} [{label}]: the state written in "
+                            f"the forwards is off by {worst(s_err)} (tol "
+                            f"{REMAT_STATE_TOL:.0e})")
+    torch.backends.cudnn.deterministic = False
+    print(f"remat False's metrics [{label}]: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in runs["False"][0].items()))
+    return total
+
+
+def a13_path_phase() -> dict:
+    """The remat modes at the flagship training shape and in f32 against
+    the CPU, the texture gate's device half at the flagship inference
+    domain, and profile_region around a flagship downscale."""
+    import tempfile
+
+    import torch
+
+    from windtpu_torch import api
+    from windtpu_torch.core.config import GANConfig, ModelConfig, TrainConfig
+    from windtpu_torch.models import texture_gate as tg
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.utils import profile_region
+
+    counts = {"convlstm_seq": 0, "spatial_ks": 0}
+    problems = []
+    for dtype, deterministic in (("bfloat16", False), ("float32", True)):
+        for k, n in remat_pass(dtype, deterministic, problems).items():
+            counts[k] += n
+    if problems:
+        fail("; ".join(problems))
+
+    # Remat in f32 at a small shape: the card against the CPU.
+    small = GANConfig(
+        model=ModelConfig(image_size=24, sequence_length=4,
+                          compute_dtype="float32"),
+        train=TrainConfig(batch_size=2, compute_spatial_ks=True,
+                          remat="save_scans", remat_gp=True))
+    train_step_pair(small, {"cuda": None, "cpu": None},
+                    name="remat save_scans+remat_gp reference")
+
+    # The texture gate's device half at the flagship inference domain.
+    params = tg.load_gate_npz(api.BUNDLED_GATE)
+    era5, raster = era5_and_dem(21, 42, 24, seed=0)
+    field = merged_field(era5, raster)[None]           # (1, 24, 546, 756, 3)
+    t0 = time.perf_counter()
+    host = tg.predict_log_energy_np(params, field)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = torch.from_numpy(field).cuda()
+    card = tg.predict_log_energy(params, on_card).cpu().numpy()
+    card_ms = cuda_ms(lambda: tg.predict_log_energy(params, on_card), 5)
+    err = float(np.abs(card - host).max())
+    print(f"gate predict_log_energy {field.shape} f32: card {card_ms:.3f} "
+          f"ms (field on the card), host predict_log_energy_np "
+          f"{host_ms:.1f} ms; max |log energy difference| {err:.3e} (tol "
+          f"{GATE_TOL:.0e}), log energies {np.round(host.ravel(), 4)}")
+    if not np.isfinite(card).all() or err > GATE_TOL:
+        fail("the card's gate energy prediction disagrees with the host's")
+    rng = np.random.default_rng(3)                 # a (2, 24, 96, 96) batch
+    low = rng.standard_normal((2, 24, 96, 96, 3), dtype=np.float32)
+    fake = 4.0 * rng.standard_normal((2, 24, 96, 96, 2), dtype=np.float32)
+    low_c, fake_c = torch.from_numpy(low).cuda(), torch.from_numpy(fake).cuda()
+    gated = tg.apply_gate(params, low_c, fake_c)
+    compare("gate apply_gate (2, 24, 96, 96, 2), card vs CPU",
+            gated.cpu().numpy(),
+            tg.apply_gate(params, torch.from_numpy(low),
+                          torch.from_numpy(fake)).numpy(),
+            atol=GATE_TOL, rtol=GATE_TOL)
+    split = tg.apply_gate_targeted(
+        torch.from_numpy(np.exp(tg.predict_log_energy_np(params, low))).cuda(),
+        torch.tensor(params["floor"]).cuda(), fake_c)
+    compare("gate apply_gate vs the split path (host prediction, "
+            "apply_gate_targeted), card", gated.cpu().numpy(),
+            split.cpu().numpy(), atol=GATE_TOL, rtol=GATE_TOL)
+
+    # profile_region around one flagship downscale.
+    network = api.get_network()
+    api.downscale(era5, raster, network=network)              # warm-up
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as trace_dir:
+        convlstm_seq.launches = 0
+        with profile_region(trace_dir):
+            api.downscale(era5, raster, network=network)
+        counts["convlstm_seq"] += convlstm_seq.launches
+        path = Path(trace_dir) / "trace.json"
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "convlstm_step" in e.get("name", "")]
+    print(f"profile_region around a flagship downscale: trace.json "
+          f"{size / 2**20:.1f} MiB, {len(events)} events, {len(k1)} K1 "
+          f"kernel events ({k1[0]['name'][:60] if k1 else None}), "
+          f"{convlstm_seq.launches} K1 launches")
+    if len(k1) != convlstm_seq.launches or not k1:
+        fail("the trace does not hold one K1 kernel event per launch")
+    return counts
+
+
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -1893,6 +2142,7 @@ PHASES = {
     "train entry": train_entry_phase,
     "prepare path": prepare_path_phase,
     "multi-GPU path": multi_gpu_phase,
+    "A13 path": a13_path_phase,
 }
 
 
@@ -1943,12 +2193,13 @@ def main() -> int:
              "ensemble": {"convlstm_seq": streamed["ensemble"]},
              "train_main": results["train entry"],
              "prepare": results["prepare path"],
-             "multi_gpu": results["multi-GPU path"]}
+             "multi_gpu": results["multi-GPU path"],
+             "a13": results["A13 path"]}
     kernels = []
     for k in KERNELS:
         by_path = {path: counts.get(k["name"], 0)
                    for path, counts in paths.items()}
-        for path in ("train", "train_main", "multi_gpu"):
+        for path in ("train", "train_main", "multi_gpu", "a13"):
             if by_path[path] == 0:
                 fail(f"{k['name']} was not launched on the {path} path")
         kernels.append({**k, "launches": sum(by_path.values()),

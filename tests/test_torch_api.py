@@ -158,12 +158,36 @@ def test_port_imports_nothing_of_jax():
         "'models.autoencoder', 'ops.stencil', 'preprocess', "
         "'preprocess.topo', 'preprocess.daily', 'preprocess.download_era5', "
         "'preprocess.download_cosmo', 'core.mesh', 'parallel', "
-        "'parallel.distributed', 'parallel.shard_step', 'utils.hostcpu'):\n"
+        "'parallel.distributed', 'parallel.shard_step', 'utils.hostcpu', "
+        "'utils', 'models.texture_gate', 'viz'):\n"
         "    assert 'windtpu_torch.' + name in sys.modules, name\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_console_scripts_name_the_port_entry_points():
+    """pyproject.toml's scripts for the port point at windtpu_torch.cli's
+    three entry points, under names that leave the JAX package's free."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if v.startswith("windtpu_torch")}
+    assert port == {
+        "windtpu-torch-downscale": "windtpu_torch.cli:main",
+        "windtpu-torch-train": "windtpu_torch.cli:train_main",
+        "windtpu-torch-prepare": "windtpu_torch.cli:prepare_main"}
+    assert {k for k, v in scripts.items() if v.startswith("windtpu.")} == {
+        "downscale", "windtpu-train", "windtpu-prepare"}
+    for target in port.values():
+        module, name = target.split(":")
+        entry = getattr(importlib.import_module(module), name)
+        with pytest.raises(SystemExit) as info:   # argparse's --help
+            entry(["--help"])
+        assert info.value.code == 0, target
 
 
 def test_entry_points_default_to_the_card(monkeypatch, networks):

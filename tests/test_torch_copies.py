@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's pure-numpy modules stay equal to
 their originals: tiling (bit for bit), the high-res template and regridding,
 the NetCDF / GeoTIFF I/O (files written by one side read by the other),
-the numpy metric oracles, the streaming engine's host helpers and the data
-providers (decoders and the batch pipeline: tests/test_torch_data.py)."""
+the numpy metric oracles, the streaming engine's host helpers, the data
+providers (decoders and the batch pipeline: tests/test_torch_data.py) and
+the plots (their figures: tests/test_torch_viz.py)."""
 
 import dataclasses
 import itertools
@@ -234,7 +235,7 @@ esac
 
 @pytest.mark.parametrize("name", ["assets", "preprocess.daily",
                                   "preprocess.download_era5",
-                                  "preprocess.download_cosmo"])
+                                  "preprocess.download_cosmo", "viz"])
 def test_module_copies_equal_their_originals_in_code(name):
     """The port's copies of these pure-Python modules differ from their
     originals in the module docstring and the package name only."""

@@ -190,6 +190,24 @@ def test_global_batch_step_ranks_equal_the_single_process_step(run):
                                        atol=SINGLE_ATOL, err_msg=k)
 
 
+def test_global_batch_step_under_save_scans_equals_the_plain_step(run):
+    """remat="save_scans" with remat_gp at two ranks: the recompute
+    all-reduces BatchNorm's sums again in the backward, in the same order
+    on both ranks; nothing deadlocks and nothing is counted twice."""
+    _assert_ranks_identical(run, "c")
+    got = export_train_state(_rank_state(run, 0, "c"))
+    want = export_train_state(_rank_state(run, 0, "b"))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+    for s in range(STEPS):
+        got_m, want_m = (_rank_metrics(run, 0, n, s) for n in ("c", "b"))
+        assert sorted(got_m) == sorted(want_m)
+        for k, v in want_m.items():
+            np.testing.assert_allclose(got_m[k], v, rtol=1e-6, atol=1e-6,
+                                       err_msg=k)
+
+
 def test_global_batch_step_matches_jax_sharded_jit(run):
     for s in range(STEPS):
         assert_metrics_close(_rank_metrics(run, 0, "b", s),

@@ -8,7 +8,9 @@ The draws are built from JAX's own key derivations inside its step
 (fold_in(rng, step), fold_in(.., critic_iter), split(k, 4),
 fold_in(.., 1000), fold_in(.., 2000)) and handed to the port's step, which
 takes its draws as an argument.  Everything is f32 at the TINY config of
-tests/test_train.py, with compute_spatial_ks on.
+tests/test_train.py, with compute_spatial_ks on.  Each rematerialisation
+mode matches the JAX step with that mode, and writes the forward state
+once: its state and gradients equal the port's remat=False step's.
 """
 
 import dataclasses
@@ -259,12 +261,98 @@ def test_load_train_state_rejects_mismatch(fault):
         load_train_state(create_train_state(tcfg, device="cpu"), flat)
 
 
-@pytest.mark.parametrize("option", [
-    {"remat": True}, {"remat": "d_only"}, {"remat_gp": True},
-    {"remat": "save_scans"}])
-def test_options_of_later_slices_raise(option):
-    _, tcfg = configs(**option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# (remat, remat_gp): the cases of tests/test_train.py's
+# test_remat_modes_are_semantics_preserving.
+REMAT = [(False, True), (True, True), ("save_scans", True), ("d_only", True),
+         ("d_only", False)]
+
+
+@pytest.mark.parametrize("remat,remat_gp", REMAT)
+def test_remat_modes_match_jax(remat, remat_gp):
+    """One step with each rematerialisation mode against the JAX step with
+    the same mode, from the same state, batch and draws.  Remat changes
+    the gradients' computation, not the metric recompute that follows the
+    updates, so that is left out, and one critic update takes every
+    wrapped call: both cut JAX's compile time."""
+    jcfg, tcfg = configs(remat=remat, remat_gp=remat_gp, n_critic=1,
+                         compute_metrics=False)
+    jstate = perturbed_state(jcfg, seed=4)
+    tstate = load_train_state(create_train_state(tcfg, device="cpu"),
+                              flatten_state(jstate))
+    low_res, high_res = batch(seed=25)
+    rng = jax.random.key(6)
+    draws = jax_draws(jcfg, rng, 0, low_res, high_res)
+    jstate, want = j_make_train_step(jcfg)(jstate, low_res, high_res, rng)
+    tstate, got = make_train_step(tcfg)(tstate, low_res, high_res,
+                                        draws=draws)
+    assert_metrics_close(got, want)
+    assert_states_close(tstate, jstate, atol=1e-4)
+
+
+def _step_recorded(tcfg, draws, low_res, high_res):
+    """One port step from a seeded state: the state written in the forwards
+    (spectral vectors, running statistics), every gradient handed to the
+    optimizers, and how often chosen layers were called."""
+    state = create_train_state(tcfg, seed=7, device="cpu")
+    grads = []
+    for opt in (state.g_opt, state.d_opt):
+        def step(g, _step=opt.step):
+            grads.append([x.clone() for x in g])
+            _step(g)
+        opt.step = step
+    calls = {}
+    layers = {"generator": state.generator.mid,
+              "generator's ConvLSTM": state.generator.convlstm,
+              "critic": state.discriminator.hr_conv}
+    for name, layer in layers.items():
+        calls[name] = 0
+        layer.register_forward_hook(
+            lambda *_, n=name: calls.__setitem__(n, calls[n] + 1))
+    state, _ = make_train_step(tcfg)(state, low_res, high_res, draws=draws)
+    written = {k: v for k, v in export_train_state(state).items()
+               if k.split("/")[0] in ("g_batch_stats", "g_spectral",
+                                      "d_spectral")}
+    return written, grads, calls
+
+
+@pytest.mark.parametrize("remat,remat_gp", REMAT)
+def test_remat_updates_state_once(remat, remat_gp):
+    """A remat step recomputes the wrapped forwards, and yet writes each
+    spectral vector and running statistic once and differentiates the
+    forward as it first ran: state and gradients equal a remat=False
+    step's.  Under "save_scans" the generator's ConvLSTM (the kernel on a
+    card) is not run again."""
+    _, plain = configs()
+    _, tcfg = configs(remat=remat, remat_gp=remat_gp)
+    low_res, high_res = batch(seed=26)
+    draws = draw_step_noise(tcfg, low_res.shape, 2,
+                            torch.Generator().manual_seed(8), "cpu")
+    want_state, want_grads, want_calls = _step_recorded(plain, draws,
+                                                        low_res, high_res)
+    got_state, got_grads, got_calls = _step_recorded(tcfg, draws, low_res,
+                                                     high_res)
+    assert sorted(got_state) == sorted(want_state)
+    for k, v in want_state.items():
+        np.testing.assert_allclose(got_state[k], v, rtol=0, atol=1e-6,
+                                   err_msg=k)
+    assert len(got_grads) == len(want_grads) == TRAIN["n_critic"] + 1
+    for got, want in zip(got_grads, want_grads):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-5)
+    recomputed = {"generator": remat in (True, "save_scans"),
+                  "generator's ConvLSTM": remat is True,
+                  "critic": remat is not False}
+    for name, again in recomputed.items():
+        if again:
+            assert got_calls[name] > want_calls[name], name
+        else:
+            assert got_calls[name] == want_calls[name], name
+
+
+def test_unknown_remat_mode_raises():
+    _, tcfg = configs(remat="everything")
+    with pytest.raises(ValueError, match="remat"):
         make_train_step(tcfg)
 
 

@@ -100,8 +100,12 @@ def _draws(inputs, prefix):
 
 
 def parallel(rank, world, workdir):
-    """The two data-parallel train steps from the same state, and the mesh
-    and collective rules, at ``world`` ranks."""
+    """The two data-parallel train steps from the same state (the
+    global-batch one also with ``remat="save_scans"``, whose recompute
+    all-reduces BatchNorm's sums again in the backward), and the mesh and
+    collective rules, at ``world`` ranks."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -125,13 +129,17 @@ def parallel(rank, world, workdir):
             if k.startswith("state/")}
     mesh = make_mesh({"data": world})
     out, checks = {}, {}
+    remat = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, remat="save_scans", remat_gp=True))
     steps = {"a": make_sharded_train_step(cfg, mesh),
-             "b": make_train_step(cfg, mesh=mesh)}
+             "b": make_train_step(cfg, mesh=mesh),
+             "c": make_train_step(remat, mesh=mesh)}
     for name, step in steps.items():
         state = load_train_state(create_train_state(cfg, device="cpu"), flat)
         for s in range(kw["steps"]):
             lr, hr = shard_batch(mesh, (inputs[f"lr/{s}"], inputs[f"hr/{s}"]))
-            prefix = f"{name}/{s}" + (f"/{rank}" if name == "a" else "")
+            # "c" takes "b"'s draws.
+            prefix = f"a/{s}/{rank}" if name == "a" else f"b/{s}"
             state, metrics = step(state, lr, hr,
                                   draws=_draws(inputs, prefix))
             for k, v in metrics.items():

@@ -161,7 +161,6 @@ def train_main(argv=None):
     from windtpu_torch.data import (BatchGenerator, LocalFileProvider,
                                     SyntheticDayProvider)
     from windtpu_torch.train.loop import train
-    from windtpu_torch.train.wgan_gp import check_ported
 
     device = resolve_device(args.device)  # fail before reading any input
     dcfg = DataConfig(sequence_length=args.sequence_length,
@@ -187,7 +186,6 @@ def train_main(argv=None):
         data=dcfg,
         checkpoint_dir=args.checkpoint_dir,
     )
-    check_ported(cfg.train)
     if args.synthetic:
         dates = [f"2020010{i}" for i in range(1, 8)]
         in_prov = SyntheticDayProvider(dates, dcfg.input_variables,

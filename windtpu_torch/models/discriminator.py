@@ -21,6 +21,8 @@ package either.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 from torch import nn
 
@@ -122,7 +124,16 @@ class Discriminator(nn.Module):
         return names, ch
 
     def forward(self, low_res: torch.Tensor, high_res: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                remat: Union[bool, str] = False) -> torch.Tensor:
+        """``remat``: ``True`` recomputes the whole forward in the backward,
+        ``"save_scans"`` all that follows the two ConvLSTMs, whose outputs
+        and activations are kept (the recurrences run once).  The state
+        moves once either way
+        (:func:`windtpu_torch.models.layers.checkpoint_with_state`)."""
+        if remat is True:
+            return L.checkpoint_with_state(self, self.forward, low_res,
+                                           high_res, train)
         cfg = self.config
         if low_res.shape[:-1] != high_res.shape[:-1]:
             raise ValueError(
@@ -145,6 +156,10 @@ class Discriminator(nn.Module):
         else:
             hr = self.hr_convlstm(high_res)
             mix = self.mix_convlstm(mix_in)
+        return L.segment_runner(self, remat == "save_scans")(
+            self._head, hr, mix, train)
+
+    def _head(self, hr, mix, train):
         hr = self.hr_ln(self.hr_conv(hr, train))
         mix = self.mix_ln(self.mix_conv(mix, train))
         x = torch.cat([hr, mix], dim=-1)

@@ -19,6 +19,8 @@ path ``params/down1/kernel`` is the state-dict key ``down1.kernel``.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 from torch import nn
 
@@ -87,13 +89,28 @@ class Generator(nn.Module):
                               dtype=dt)
 
     def forward(self, image: torch.Tensor, noise: torch.Tensor,
-                train: bool = False, group=None) -> torch.Tensor:
+                train: bool = False, group=None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
+        """``remat`` (``TrainConfig.remat``'s values for this network):
+        ``True`` recomputes the whole forward in the backward, the kernel
+        included; ``"save_scans"`` recomputes the two segments around the
+        ConvLSTM and keeps the ConvLSTM's output and input activations, so
+        the kernel runs once.  The state moves once either way
+        (:func:`windtpu_torch.models.layers.checkpoint_with_state`)."""
+        if remat is True:
+            return L.checkpoint_with_state(self, self.forward, image, noise,
+                                           train, group)
+        segment = L.segment_runner(self, remat == "save_scans")
+        res_2, res_4 = segment(self._stem, image, noise, train, group)
+        return segment(self._head, self.convlstm(res_4), res_4, res_2, train,
+                       group)
+
+    def _stem(self, image, noise, train, group):
         x = torch.cat([image, noise], dim=-1).to(self.dtype)
-        x = self.bn1(self.down1(x, train), train, group)
-        res_2 = x
-        x = self.bn2(self.down2(x, train), train, group)
-        res_4 = x
-        x = self.convlstm(x)
+        res_2 = self.bn1(self.down1(x, train), train, group)
+        return res_2, self.bn2(self.down2(res_2, train), train, group)
+
+    def _head(self, x, res_4, res_2, train, group):
         x = self.bn3(self.mid(x, train), train, group)
         x = torch.cat([x, res_4], dim=-1)
         x = self.bn4(self.up1(x, train), train, group)

@@ -28,16 +28,23 @@ Semantics kept from the JAX layers:
 State moves only when a layer is called with its training flag
 (``update_sn_stats=True``, ``train=True``); ``nn.Module.training`` is not
 read.
+
+Rematerialisation (the train step's ``TrainConfig.remat``) goes through
+:func:`checkpoint_with_state`: a training forward writes state, which a
+bare ``torch.utils.checkpoint`` would write again in its recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from windtpu_torch.core.mesh import psum
 from windtpu_torch.ops.convlstm import hard_sigmoid
@@ -567,3 +574,65 @@ def bilinear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
              for i in range(0, folded.shape[0], step)]
     y = parts[0] if len(parts) == 1 else torch.cat(parts)
     return _unfold(y.permute(0, 2, 3, 1), x.shape[0])
+
+
+@contextlib.contextmanager
+def _buffers_replaced(slots: List[Tuple[nn.Module, str]],
+                      tensors: List[torch.Tensor]):
+    """Point each ``(module, name)`` buffer slot at the given tensor for the
+    duration, and back at the module's own afterwards."""
+    own = [m._buffers[name] for m, name in slots]
+    for (m, name), t in zip(slots, tensors):
+        m._buffers[name] = t
+    try:
+        yield
+    finally:
+        for (m, name), t in zip(slots, own):
+            m._buffers[name] = t
+
+
+def checkpoint_with_state(module: nn.Module, fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, which
+    can be differentiated twice): the activations it would save are
+    dropped and recomputed in the backward.
+
+    ``fn`` runs ``module``'s layers, whose training forward writes
+    ``module``'s buffers (the spectral-norm ``u``, BatchNorm's running
+    statistics).  A bare checkpoint would write them a second time in the
+    recompute, and would differentiate a recompute that reads the already
+    advanced ``u``; the JAX package has no such hazard, its state being an
+    output of the checkpointed function.  Here too the state is one: a
+    copy of every buffer as it stands before the call is an input of the
+    checkpointed function, which runs ``fn`` on a fresh copy of it and
+    returns what ``fn`` wrote there.  So the forward and its recompute read
+    the same state, the forward's writes reach ``module``'s buffers once,
+    after it returns, and the recompute's are dropped."""
+    slots = [(m, name) for m in module.modules()
+             for name, b in m._buffers.items() if b is not None]
+
+    def run(*inputs):
+        state = [s.clone() for s in inputs[len(args):]]
+        with _buffers_replaced(slots, state):
+            out = fn(*inputs[:len(args)])
+        return out, state
+
+    before = [m._buffers[name].clone() for m, name in slots]
+    # The forwards draw no random numbers: no RNG state to replay.
+    out, state = checkpoint(run, *args, *before, use_reentrant=False,
+                            preserve_rng_state=False)
+    with torch.no_grad():
+        for (m, name), new in zip(slots, state):
+            m._buffers[name].copy_(new)
+    return out
+
+
+def _call(fn: Callable, *args):
+    return fn(*args)
+
+
+def segment_runner(module: nn.Module, checkpointed: bool) -> Callable:
+    """How a network's forward calls its segments between recurrences:
+    through :func:`checkpoint_with_state` on ``module`` (the train step's
+    ``remat="save_scans"``) or directly."""
+    return (functools.partial(checkpoint_with_state, module) if checkpointed
+            else _call)

@@ -2,34 +2,44 @@
 ``windtpu/models/texture_gate.py``): post-hoc per-channel rescaling of the
 output's high-pass band toward a predicted truth energy.
 
-Two halves, as in the JAX package's inference path:
+Two halves, as in the JAX package:
 
+* device (``torch.fft``, f32 / complex64): the intensive features of the
+  input field (:func:`_features`), the MLP's energy prediction
+  (:func:`predict_log_energy`, differentiable in ``w1..b3``: the fit
+  minimises its squared error), the gains and the gated field
+  (:func:`gate_gains`, :func:`apply_gate`), and
+  :func:`apply_gate_targeted`, which gates the stitched canvas toward
+  energies predicted elsewhere, where the canvas already lives;
 * host (numpy): the energy prediction from a dozen intensive statistics of
-  the input field (:func:`predict_log_energy_np`), and the whole gate on a
-  host canvas (:func:`apply_gate_targeted_np`) — copies of the JAX
-  package's numpy twins;
-* device (``torch.fft``): :func:`apply_gate_targeted`, which measures the
-  stitched canvas's band moments and rescales its high-pass band with the
-  closed-form gain, where the canvas already lives.
+  the input field (:func:`predict_log_energy_np`, what ``api.predict``
+  runs), and the whole gate on a host canvas
+  (:func:`apply_gate_targeted_np`) — copies of the JAX package's numpy
+  twins.
 
 The band split is the spectral Gaussian of sigma = 7 px; the gain solves
 E(s) = a + 2 b s + c s^2 = max(target, floor) and is clipped to
 [0.25, 3]; channels where both the prediction and the measurement sit
 under the floor keep gain 1.
+
+Parameters (:data:`Params`) are a dict of numpy arrays, as
+:func:`load_gate_npz` returns them; the device functions take tensors as
+well (a fit's trainable ones), and move each to the input's device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-Params = Dict[str, np.ndarray]
+Params = Dict[str, Union[np.ndarray, torch.Tensor]]
 
 SIGMA = 7.0
 S_MIN, S_MAX = 0.25, 3.0
+N_FEATURES = 11
 
 
 # -- device side (torch) -----------------------------------------------------
@@ -40,6 +50,90 @@ def _gauss_multiplier(ny: int, nx: int, device, sigma: float = SIGMA
     ky = torch.fft.fftfreq(ny, dtype=torch.float32, device=device)[:, None]
     kx = torch.fft.fftfreq(nx, dtype=torch.float32, device=device)[None, :]
     return torch.exp(-2.0 * (math.pi * sigma) ** 2 * (ky ** 2 + kx ** 2))
+
+
+def _param(params: Params, key: str, like: torch.Tensor) -> torch.Tensor:
+    """``params[key]`` as f32 on ``like``'s device (a tensor keeps its
+    graph)."""
+    return torch.as_tensor(params[key], dtype=torch.float32,
+                           device=like.device)
+
+
+def _spectral_lowpass(field: torch.Tensor, sigma: float = SIGMA
+                      ) -> torch.Tensor:
+    """Periodic Gaussian blur over the last two axes."""
+    g = _gauss_multiplier(field.shape[-2], field.shape[-1], field.device,
+                          sigma)
+    return torch.fft.ifft2(torch.fft.fft2(field.float()) * g).real
+
+
+def _hp_energy(field: torch.Tensor) -> torch.Tensor:
+    """Mean squared high-pass content over (T, H, W): the metric."""
+    hp = field - _spectral_lowpass(field)
+    return torch.mean(hp * hp, dim=(-3, -2, -1))
+
+
+def _features(low: torch.Tensor) -> torch.Tensor:
+    """Per-sample intensive features of (..., T, H, W, 3) (blurred u,
+    blurred v, elevation / 1e3) -> (..., 2, 11): row c describes output
+    channel c, with its own stats, the other channel's and the shared
+    ones (speed, terrain spread, energy and roughness)."""
+    u, v, elev = low[..., 0], low[..., 1], low[..., 2]
+    red = (-3, -2, -1)
+
+    def std(x):
+        return torch.std(x, dim=red, correction=0)
+
+    def chan_stats(x):
+        return [torch.mean(torch.abs(x), dim=red), std(x),
+                torch.log(_hp_energy(x) + 1e-8)]
+
+    su, sv = chan_stats(u), chan_stats(v)
+    speed = torch.mean(torch.sqrt(u * u + v * v), dim=red)
+    gy = elev - torch.roll(elev, 1, dims=-2)
+    gx = elev - torch.roll(elev, 1, dims=-1)
+    grad2 = gy * gy + gx * gx
+    rough = [torch.mean(torch.sqrt(grad2), dim=red),
+             torch.log(torch.mean(grad2, dim=red) + 1e-10)]
+    shared = [speed, std(elev), torch.log(_hp_energy(elev) + 1e-8)] + rough
+    fu = torch.stack(su + sv + shared, dim=-1)
+    fv = torch.stack(sv + su + shared, dim=-1)
+    return torch.stack([fu, fv], dim=-2)
+
+
+def init_params(generator: torch.Generator, hidden: int = 32) -> Params:
+    """Fresh gate parameters (MLP 11 -> hidden -> hidden -> 1) drawn from
+    ``generator``: normal kernels scaled by 1/sqrt(fan-in), zero biases.
+    ``f_mu``/``f_sd`` (feature normalisation, 0 and 1 here) and ``floor``
+    (1e-3) are calibration constants that a fit fills in."""
+    def normal(shape, fan_in):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x / math.sqrt(fan_in)).cpu().numpy()
+
+    zeros = lambda n: np.zeros((n,), np.float32)  # noqa: E731
+    return {
+        "w1": normal((N_FEATURES, hidden), N_FEATURES),
+        "b1": zeros(hidden),
+        "w2": normal((hidden, hidden), hidden),
+        "b2": zeros(hidden),
+        "w3": normal((hidden, 1), hidden),
+        "b3": zeros(1),
+        "f_mu": zeros(N_FEATURES),
+        "f_sd": np.ones((N_FEATURES,), np.float32),
+        "floor": np.asarray(1e-3, np.float32),
+    }
+
+
+def predict_log_energy(params: Params, low: torch.Tensor) -> torch.Tensor:
+    """Predicted log truth high-pass energy of (..., T, H, W, 3), shape
+    (..., 2), on ``low``'s device; differentiable in the parameters."""
+    low = torch.as_tensor(low, dtype=torch.float32)
+    p = {k: _param(params, k, low) for k in
+         ("w1", "b1", "w2", "b2", "w3", "b3", "f_mu", "f_sd")}
+    f = (_features(low) - p["f_mu"]) / p["f_sd"]
+    h = torch.tanh(f @ p["w1"] + p["b1"])
+    h = torch.tanh(h @ p["w2"] + p["b2"])
+    return (h @ p["w3"] + p["b3"])[..., 0]
 
 
 def _band_moments(spec: torch.Tensor, g: torch.Tensor):
@@ -64,6 +158,50 @@ def _solve_gain(target, m, a, b, c, floor):
     return torch.clamp(s, S_MIN, S_MAX)
 
 
+def _gains(spec: torch.Tensor, g: torch.Tensor, pred_energy: torch.Tensor,
+           floor: torch.Tensor) -> torch.Tensor:
+    """Per-(..., channel) gains toward ``pred_energy``; 1 where both the
+    prediction and the measured energy sit under the floor."""
+    m, a, b, c = _band_moments(spec, g)
+    target = torch.maximum(pred_energy, floor)
+    s = _solve_gain(target, m, a, b, c, floor)
+    return torch.where((pred_energy <= floor) & (m <= floor),
+                       torch.ones_like(s), s)
+
+
+def _blend(spec: torch.Tensor, g: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    """The field G*y + s*(1-G)*y from its fft2 ``spec``."""
+    mult = g + s[..., None, None, None] * (1.0 - g)
+    return torch.fft.ifft2(spec * mult).real
+
+
+def _gate(params: Params, low: torch.Tensor, fake: torch.Tensor,
+          want_field: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    yc = torch.movedim(fake, -1, -4).float()   # (..., 2, T, H, W)
+    g = _gauss_multiplier(yc.shape[-2], yc.shape[-1], yc.device)
+    spec = torch.fft.fft2(yc)
+    s = _gains(spec, g, torch.exp(predict_log_energy(params, low)),
+               _param(params, "floor", yc))
+    if not want_field:
+        return None, s
+    return torch.movedim(_blend(spec, g, s), -4, -1), s
+
+
+def gate_gains(params: Params, low: torch.Tensor,
+               fake: torch.Tensor) -> torch.Tensor:
+    """Per-(sample, channel) high-pass gains, shape (..., 2)."""
+    return _gate(params, low, fake, want_field=False)[1]
+
+
+def apply_gate(params: Params, low: torch.Tensor,
+               fake: torch.Tensor) -> torch.Tensor:
+    """Gate ``fake`` (..., T, H, W, 2) conditioned on ``low``
+    (..., T, H, W, 3): the spectral blend G*fake + s*(1-G)*fake with each
+    (sample, channel)'s exact gain, on ``fake``'s device."""
+    return _gate(params, low, fake, want_field=True)[0]
+
+
 def apply_gate_targeted(pred_energy: torch.Tensor, floor: torch.Tensor,
                         fake: torch.Tensor) -> torch.Tensor:
     """Gate ``fake`` (..., T, H, W, 2) toward the target energies
@@ -74,14 +212,8 @@ def apply_gate_targeted(pred_energy: torch.Tensor, floor: torch.Tensor,
     yz = torch.where(finite, yc, torch.zeros_like(yc))
     g = _gauss_multiplier(yz.shape[-2], yz.shape[-1], yz.device)
     spec = torch.fft.fft2(yz)
-    m, a, b, c = _band_moments(spec, g)
-    target = torch.maximum(pred_energy, floor)
-    s = _solve_gain(target, m, a, b, c, floor)
-    s = torch.where((pred_energy <= floor) & (m <= floor),
-                    torch.ones_like(s), s)
-    mult = g + s[..., None, None, None] * (1.0 - g)
-    out = torch.fft.ifft2(spec * mult).real
-    out = torch.where(finite, out, yc)
+    s = _gains(spec, g, pred_energy, floor)
+    out = torch.where(finite, _blend(spec, g, s), yc)
     return torch.movedim(out, -4, -1)
 
 
@@ -193,6 +325,14 @@ def apply_gate_targeted_np(pred_energy, floor, fake) -> np.ndarray:
                 ).real.astype(np.float32)
                 oflat[i, f, ..., ch] = np.where(finite, gated, frame)
     return out
+
+
+def save_gate_npz(path, params: Params) -> None:
+    """Write ``params`` (arrays or tensors) as the ``.npz`` both packages'
+    ``load_gate_npz`` read."""
+    np.savez(path, **{k: (v.detach().cpu().numpy()
+                          if isinstance(v, torch.Tensor) else np.asarray(v))
+                      for k, v in params.items()})
 
 
 def load_gate_npz(path) -> Params:

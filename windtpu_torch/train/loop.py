@@ -4,7 +4,7 @@ mesh, on every rank of a data-parallel run."""
 
 from __future__ import annotations
 
-import os
+import contextlib
 import time
 from typing import Callable, Iterable, Optional
 
@@ -18,7 +18,7 @@ from windtpu_torch.parallel.distributed import agree, replicate_to_mesh
 from windtpu_torch.train import checkpoint as ckpt
 from windtpu_torch.train.state import GANTrainState, create_train_state
 from windtpu_torch.train.wgan_gp import make_multi_train_step, make_train_step
-from windtpu_torch.utils.logging import MetricsLogger
+from windtpu_torch.utils.logging import MetricsLogger, profile_region
 
 
 def train(
@@ -107,7 +107,7 @@ def train(
     steps_since_log = 0
     local_step = 0
     call_idx = 0
-    profiler = None
+    profiling = contextlib.ExitStack()
     while local_step < num_steps:
         this_k = k if (num_steps - local_step) >= k else 1
         if this_k > 1:
@@ -120,11 +120,10 @@ def train(
             fn = single_fn
         # Profile calls 2..3, past the kernels' build and the warm-up.
         if profile_dir and call_idx == 2:
-            profiler = _start_profiler(state.device)
+            profiling.enter_context(profile_region(profile_dir))
         state, metrics = fn(state, low_res, high_res, rng)
-        if profiler is not None and call_idx == 3:
-            _stop_profiler(profiler, profile_dir, state.device)
-            profiler = None
+        if call_idx == 3:
+            profiling.close()
         prev = local_step
         local_step += this_k
         steps_since_log += this_k
@@ -153,29 +152,9 @@ def train(
                 and prev // checkpoint_every
                 != local_step // checkpoint_every):
             ckpt.save_checkpoint(cfg.checkpoint_dir, state)
-    if profiler is not None:  # num_steps ended inside the trace window
-        _stop_profiler(profiler, profile_dir, state.device)
+    profiling.close()  # num_steps may end inside the trace window
     if cfg.checkpoint_dir and lead:
         ckpt.save_checkpoint(cfg.checkpoint_dir, state)
     if metrics_logger:
         metrics_logger.close()
     return state, history
-
-
-def _start_profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    profiler = profile(activities=activities)
-    profiler.start()
-    return profiler
-
-
-def _stop_profiler(profiler, profile_dir, device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    profiler.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

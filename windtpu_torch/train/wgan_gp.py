@@ -15,7 +15,10 @@ operations, because state moves on every training forward:
 * the GP norm reduces over axes (1, 2, 3) and leaves per-channel norms;
 * instance noise (std = noise_std, out_channels wide) is added to BOTH
   critic inputs when scoring;
-* ``detach_gp=True`` logs the penalty without training the critic on it.
+* ``detach_gp=True`` logs the penalty without training the critic on it;
+* ``TrainConfig.remat`` recomputes the chosen training forwards in the
+  backward instead of keeping their activations (:func:`remat_modes`);
+  the state they write moves once all the same.
 
 The random draws are split from the arithmetic: :func:`draw_step_noise`
 draws everything a step needs from a ``torch.Generator``, and the step
@@ -48,7 +51,8 @@ averaging them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -110,13 +114,23 @@ def draw_step_noise(cfg: GANConfig, low_res_shape: Sequence[int],
                     else None))
 
 
-def check_ported(tcfg: TrainConfig) -> None:
-    """Options of ``TrainConfig`` whose slice of the port is still to come
-    raise here instead of being ignored (ROADMAP A)."""
-    if tcfg.remat is not False or tcfg.remat_gp:
-        raise NotImplementedError(
-            "TrainConfig.remat / remat_gp: the rematerialization modes are "
-            "not ported yet (ROADMAP A13)")
+REMAT_MODES = (False, True, "d_only", "save_scans")
+
+
+def remat_modes(tcfg: TrainConfig) -> Tuple[Union[bool, str], ...]:
+    """The ``remat`` argument of the generator's training forward, of the
+    critic's scoring calls and of its gradient-penalty call, from
+    ``TrainConfig.remat`` and ``remat_gp``, call site by call site as the
+    JAX step wraps them: ``True`` both networks, ``"d_only"`` the critic,
+    ``"save_scans"`` both but for their ConvLSTMs; the gradient-penalty
+    call, differentiated twice, only with ``remat_gp``."""
+    remat = tcfg.remat
+    if remat not in REMAT_MODES:
+        raise ValueError(f"TrainConfig.remat must be one of {REMAT_MODES}; "
+                         f"got {remat!r}")
+    g_remat = remat if remat is True or remat == "save_scans" else False
+    d_remat = True if remat == "d_only" else g_remat
+    return g_remat, d_remat, (d_remat if tcfg.remat_gp else False)
 
 
 def _grads_or_zeros(loss: torch.Tensor,
@@ -204,7 +218,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
     reports it as ``g_reco_loss``.  Without it the loss is off, as in the
     JAX step."""
     tcfg = cfg.train
-    check_ported(tcfg)
+    g_remat, d_remat, gp_remat = remat_modes(tcfg)
     reco_fn = (reconstruction_loss(feature_fn,
                                    tcfg.reconstruction_coefficient)
                if feature_fn is not None
@@ -255,7 +269,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
             mixed.requires_grad_()
             # Gradient penalty: the critic differentiated for its image
             # input, inside the loss that is differentiated for d_params.
-            scores = critic(low_res, mixed, train=True)
+            scores = critic(low_res, mixed, train=True, remat=gp_remat)
             grads_img, = torch.autograd.grad(scores.sum(), mixed,
                                              create_graph=not detach)
             penalty, gp_mean_norm = gradient_penalty_from_grads(
@@ -268,11 +282,12 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                 # One critic call on the doubled batch: the critic has no
                 # cross-sample op, so the scores are those of two calls.
                 both = critic(torch.cat([low_res, low_res]),
-                              torch.cat([real_in, fake_in]), train=True)
+                              torch.cat([real_in, fake_in]), train=True,
+                              remat=d_remat)
                 rs, fs = both[:b], both[b:]
             else:
-                rs = critic(low_res, real_in, train=True)
-                fs = critic(low_res, fake_in, train=True)
+                rs = critic(low_res, real_in, train=True, remat=d_remat)
+                fs = critic(low_res, fake_in, train=True, remat=d_remat)
             loss = discriminator_loss(rs, fs) + penalty
             *d_grads, d_loss_val, gp_mean_norm = pmean(
                 _grads_or_zeros(loss, d_params)
@@ -282,10 +297,10 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
 
         # ---- generator update ------------------------------------------
         fake = gen(low_res, std * draws.gen_noise, train=True,
-                   group=bn_group)
+                   group=bn_group, remat=g_remat)
         g_adv = g_reco = g_sharp = zero
         if tcfg.adversarial_coefficient > 0:   # 0 removes the critic call
-            scores = critic(low_res, fake, train=True)
+            scores = critic(low_res, fake, train=True, remat=d_remat)
             g_adv = (tcfg.adversarial_coefficient
                      * generator_adversarial_loss(scores))
         if reco_fn is not None:

@@ -1,1 +1,2 @@
-from windtpu_torch.utils.logging import MetricsLogger  # noqa: F401
+from windtpu_torch.utils.logging import (MetricsLogger,  # noqa: F401
+                                         profile_region)

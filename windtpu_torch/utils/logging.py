@@ -1,12 +1,24 @@
-"""Step-metric logging (counterpart of ``windtpu/utils/logging.py``'s
-``MetricsLogger``): an append-only JSONL of per-step scalar metrics, one
-object per line (step, wall time, metrics), cheap enough to leave on."""
+"""Observability (counterpart of ``windtpu/utils/logging.py``):
+
+* :class:`MetricsLogger` — an append-only JSONL of per-step scalar
+  metrics, one object per line (step, wall time, metrics), cheap enough to
+  leave on;
+* :func:`profile_region` — a ``torch.profiler`` trace around a code
+  region, written as a Chrome trace (``chrome://tracing``,
+  ui.perfetto.dev);
+* :func:`enable_nan_checks` — autograd's anomaly detection, which names
+  the forward op whose backward produced a NaN.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+from typing import Optional
+
+import torch
 
 
 class MetricsLogger:
@@ -44,3 +56,32 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+@contextlib.contextmanager
+def profile_region(log_dir: Optional[str]):
+    """``torch.profiler`` trace of the CPU, and of the card where there is
+    one, around a code region, written to ``log_dir/trace.json`` on exit
+    (a no-op when ``log_dir`` is None)."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def enable_nan_checks():
+    """Development mode: autograd raises at the first backward that
+    produces a NaN, naming the forward op it came from."""
+    torch.autograd.set_detect_anomaly(True)
