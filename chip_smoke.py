@@ -14,10 +14,13 @@ Phases, each of which ends the script with a nonzero exit on failure:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the main paths' shapes and at a ragged shape, then time the kernel,
    the plain version and the nearest PyTorch call with CUDA events, beside
-   the kernel's bound.  K1 (ConvLSTM): forward in bf16 (tensor cores, the
-   tile chosen per shape) and f32 (CUDA cores), the times at the shapes of
-   the downscale, training, ensemble (bf16) and train_main (f32) paths
-   beside cuDNN's convs, and the gradients through its autograd Function.
+   the kernel's bound.  K1 (ConvLSTM): forward in bf16 (tensor cores) and
+   f32 (CUDA cores, bitwise repeatable), the tile (and the f32 route's
+   split over the taps) chosen per shape, the times at the shapes of the
+   downscale, training and ensemble paths (bf16) and of the downscale,
+   train_main, its ranks and the prepare path (f32) beside cuDNN's convs,
+   each f32 tile candidate's time, and the gradients through its autograd
+   Function.
    K2 (spatial KS): also on identical fields, with NaNs and with values on
    the thresholds;
 4. reference: the flagship network in f32 with the bundled weights on a
@@ -125,6 +128,7 @@ TRAIN_RANK_SHAPE = (8, 6, 8, 8, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
 NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
+NARROW_F32_SHAPE = (2, 3, 5, 9, 6)   # F not a multiple of 4
 TOL = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
 # K1's bf16 gradient with hard_sigmoid: relative L2 and the share of entries
 # beyond TOL x max |grad| (see convlstm_gradient_phase).
@@ -320,10 +324,14 @@ def convlstm_kernel_phase() -> dict:
     import torch.nn.functional as F
 
     from windtpu_torch.ops.convlstm import (
+        F32_TILES,
         TILES,
+        _launch_sequence,
         choose_tile,
+        choose_tile_f32,
         convlstm_seq,
         convlstm_seq_plain,
+        f32_blocks,
     )
 
     cases = [(MAIN_SHAPE, torch.bfloat16, True),
@@ -335,7 +343,8 @@ def convlstm_kernel_phase() -> dict:
              (RAGGED_SHAPE, torch.bfloat16, True),
              (RAGGED_SHAPE, torch.float32, False),
              (NARROW_SHAPE, torch.bfloat16, True),
-             (TRAIN_RANK_SHAPE, torch.float32, True)]
+             (TRAIN_RANK_SHAPE, torch.float32, True),
+             (NARROW_F32_SHAPE, torch.float32, True)]
     main_err = None
     for i, (shape, dtype, hard) in enumerate(cases):
         zx, rk = convlstm_inputs(shape, dtype, seed=i)
@@ -350,6 +359,14 @@ def convlstm_kernel_phase() -> dict:
         if not ok:
             fail(f"convlstm_seq disagrees with its plain version at {shape} "
                  f"{dtype}")
+        if dtype == torch.float32:
+            # The f32 route sums a cluster's partials in rank order, with no
+            # atomics: two launches on the same inputs agree in every bit.
+            again = convlstm_seq(zx, rk, hard_sig=hard)
+            torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                fail(f"convlstm_seq's f32 route is not bitwise repeatable "
+                     f"at {shape}")
         if i == 0:
             main_err = err
 
@@ -361,6 +378,17 @@ def convlstm_kernel_phase() -> dict:
         blocks = -(-b * h * w // bm) * -(-f // bj)
         print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj} "
               f"({blocks} blocks per step on {sms} SMs)")
+    for shape in (MAIN_SHAPE, TRAIN_MAIN_SHAPE, TRAIN_RANK_SHAPE,
+                  PREPARE_SHAPE, RAGGED_SHAPE, NARROW_F32_SHAPE):
+        b, t, h, w, f = shape
+        code = choose_tile_f32(b * h * w, f, sms)
+        bm, bj, split = F32_TILES[code]
+        blocks = f32_blocks(b * h * w, f, code)
+        print(f"convlstm_seq {shape} f32 tile: BM {bm} x BJ {bj}, split "
+              f"{split} ({blocks} CTAs per step on {sms} SMs)")
+        if shape in (TRAIN_MAIN_SHAPE, TRAIN_RANK_SHAPE, PREPARE_SHAPE) and (
+                blocks < sms):
+            fail(f"the f32 route leaves SMs idle at {shape}: {blocks} CTAs")
 
     def library_convs(shape, rk, dtype):
         # Library yardstick, conv part only: the T-1 recurrent 3x3 convs as
@@ -377,14 +405,17 @@ def convlstm_kernel_phase() -> dict:
                 F.conv2d(hx, wk, padding=1)
         return library
 
-    # One card, one call: the bf16 kernel, the f32 CUDA-core kernel (main
-    # shape only), the plain version (main shape only) and cuDNN, in turns.
+    # One card, one call: the kernel, cuDNN and the kernel again at each
+    # path's shape and type, the plain version at the main shape, and each
+    # f32 tile candidate.
     stats = {}
-    for shape, dtype in ((MAIN_SHAPE, torch.bfloat16),
-                         (TRAIN_SHAPE, torch.bfloat16),
-                         (ENSEMBLE_SHAPE, torch.bfloat16),
-                         (TRAIN_MAIN_SHAPE, torch.float32),
-                         (PREPARE_SHAPE, torch.float32)):
+    for shape, dtype, key in ((MAIN_SHAPE, torch.bfloat16, None),
+                              (TRAIN_SHAPE, torch.bfloat16, "train"),
+                              (ENSEMBLE_SHAPE, torch.bfloat16, "ensemble"),
+                              (MAIN_SHAPE, torch.float32, "f32"),
+                              (TRAIN_MAIN_SHAPE, torch.float32, "train_main"),
+                              (TRAIN_RANK_SHAPE, torch.float32, "train_rank"),
+                              (PREPARE_SHAPE, torch.float32, "prepare")):
         zx, rk = convlstm_inputs(shape, dtype, seed=0)
         library = library_convs(shape, rk, dtype)
         bound_ms, bound_by, flops, nbytes = convlstm_bound(
@@ -400,28 +431,29 @@ def convlstm_kernel_phase() -> dict:
                 f"({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
                 f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB)")
-        if shape == MAIN_SHAPE:
-            zx32 = zx.float()
-            f32_ms = cuda_ms(lambda: convlstm_seq(zx32, rk), iters=5)
+        if key is None:
             plain_ms = cuda_ms(lambda: convlstm_seq_plain(zx, rk), iters=5,
                                warmup=1)
-            line += (f"; f32 CUDA-core kernel {f32_ms:.4f} ms "
-                     f"({flops / f32_ms / 1e9:.1f} TFLOP/s); plain "
-                     f"{plain_ms:.4f} ms")
-            stats = {"max_abs_err": main_err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "f32_ms": f32_ms}
+            line += f"; plain {plain_ms:.4f} ms"
+            stats.update({"max_abs_err": main_err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": library_ms})
         else:
-            key = {(TRAIN_SHAPE, torch.bfloat16): "train",
-                   (ENSEMBLE_SHAPE, torch.bfloat16): "ensemble",
-                   (TRAIN_MAIN_SHAPE, torch.float32): "train_main",
-                   (PREPARE_SHAPE, torch.float32): "prepare"}[shape, dtype]
             stats.update({f"{key}_library_ms": library_ms,
                           f"{key}_bound_ms": bound_ms})
             if key != "train":   # the gradient phase times that one
                 stats[f"{key}_ms"] = ms
         print(line)
+        if dtype == torch.float32:
+            b, t, h, w, f = shape
+            chosen = choose_tile_f32(b * h * w, f, sms)
+            for code, (bm, bj, split) in F32_TILES.items():
+                tile_ms = cuda_ms(lambda: _launch_sequence(
+                    zx, rk, True, f32_tile=code), iters=10)
+                print(f"  f32 tile BM {bm} x BJ {bj}, split {split}: "
+                      f"{tile_ms:.4f} ms ({flops / tile_ms / 1e9:.1f} "
+                      f"TFLOP/s), {f32_blocks(b * h * w, f, code)} CTAs"
+                      f"{' (the rule)' if code == chosen else ''}")
     stats.update(convlstm_gradient_phase())
     return stats
 

@@ -20,12 +20,16 @@ from windtpu.models.layers import _convlstm_scan, hard_sigmoid
 from windtpu.ops.pallas_convlstm import convlstm_seq_fused
 from windtpu_torch.models.layers import convlstm_scan
 from windtpu_torch.ops.convlstm import (
+    F32_CHUNK,
+    F32_TILES,
     K_CHUNK,
     TILES,
     ConvLSTMSeqFunction,
     choose_tile,
+    choose_tile_f32,
     convlstm_seq,
     convlstm_seq_plain,
+    f32_blocks,
     pack_recurrent_kernel,
 )
 
@@ -109,11 +113,18 @@ def test_kernel_matches_plain_on_card():
         pytest.skip("the CUDA kernel runs only on a card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # The f32 cases are the f32 paths' shapes at T = 3 (train_main, one of
+    # its two ranks, the perceptual train_main, the downscale), a ragged one
+    # and F % 4 != 0, which takes the element-by-element gather.
     cases = [((2, 4, 24, 24, 128), torch.bfloat16, True, 2.0 ** -5),
              ((2, 4, 24, 24, 128), torch.float32, True, 1e-4),
              ((3, 5, 7, 7, 40), torch.float32, False, 1e-4),
              ((3, 5, 7, 7, 40), torch.bfloat16, True, 2.0 ** -5),
-             ((2, 3, 5, 9, 12), torch.bfloat16, True, 2.0 ** -5)]
+             ((2, 3, 5, 9, 12), torch.bfloat16, True, 2.0 ** -5),
+             ((16, 3, 8, 8, 128), torch.float32, True, 1e-4),
+             ((8, 3, 8, 8, 128), torch.float32, True, 1e-4),
+             ((16, 3, 24, 24, 128), torch.float32, True, 1e-4),
+             ((2, 3, 5, 9, 6), torch.float32, True, 1e-4)]
     for i, ((b, t, h, w, f), dtype, hard, tol) in enumerate(cases):
         zx, rk = _inputs(10 + i, b, t, h, w, f)
         zx = torch.from_numpy(zx).to("cuda", dtype)
@@ -125,6 +136,9 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (b, t, h, w, f, dtype, err)
+        if dtype == torch.float32:
+            # No atomics: the cluster adds its partial sums in rank order.
+            assert torch.equal(convlstm_seq(zx, rk, hard_sig=hard), got)
 
 
 def _unpack(packed, f):
@@ -193,6 +207,76 @@ def test_tile_follows_the_shape(shape, tile, blocks):
     assert choose_tile(b * h * w, f) == tile
     bm, bj = TILES[tile]
     assert -(-b * h * w // bm) * -(-f // bj) == blocks
+
+
+@pytest.mark.parametrize("f", [6, 40, 128])
+def test_f32_packed_slab_gemm_is_the_conv_step(f):
+    rng = np.random.RandomState(12)
+    rk = torch.from_numpy((0.1 * rng.randn(3, 3, f, 4 * f)).astype(
+        np.float32))
+    h = torch.from_numpy(rng.randn(2, 5, 6, f).astype(np.float32))
+    bj = F32_TILES[0][1]
+    packed = pack_recurrent_kernel(rk, bj, F32_CHUNK)
+    fp = -(-f // F32_CHUNK) * F32_CHUNK
+    assert packed.shape == (-(-f // bj), 9 * fp, 4 * bj)
+    assert packed.is_contiguous() and packed.dtype == torch.float32
+    assert torch.equal(_unpack(packed, f), rk)
+    want = torch.nn.functional.conv2d(
+        h.permute(0, 3, 1, 2), rk.permute(3, 2, 0, 1), padding=1)
+    # Sums of 9F products in another order than ATen's: at F = 128 their
+    # magnitude reaches about 8, so the f32 rounding gap is relative.
+    torch.testing.assert_close(_packed_step(h, packed, f),
+                               want.permute(0, 2, 3, 1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,code,blocks", [
+    ((16, 8, 8, 128), 1, 192),      # train_main: 16 x 4 tiles x 3 taps rows
+    ((8, 8, 8, 128), 2, 192),       # one of its two ranks: 16 x 4 x 3
+    ((2, 24, 24, 128), 1, 216),     # perceptual train_main: 18 x 4 x 3
+    ((16, 24, 24, 128), 0, 576),    # downscale: 144 x 4, no split
+])
+def test_f32_tile_fills_the_card(shape, code, blocks):
+    b, h, w, f = shape
+    assert choose_tile_f32(b * h * w, f) == code
+    assert f32_blocks(b * h * w, f, code) == blocks >= 132
+
+
+def test_f32_tile_rule_takes_the_most_blocks_below_one_per_sm():
+    assert choose_tile_f32(3 * 7 * 7, 40) == max(F32_TILES)
+    for code in F32_TILES:
+        bm, bj, split = F32_TILES[code]
+        assert bm % 16 == 0 and bj == 32 and split in (1, 3)
+
+
+def test_tap_row_partial_sums_add_up_to_the_step():
+    # Split 3: rank r multiplies tap row dy = r - 1, rows [3r*Fp, 3(r+1)*Fp)
+    # of the slab; rank 0 adds the partials as (p0 + p1) + p2.
+    rng = np.random.RandomState(13)
+    b, hh, ww, f = 2, 5, 7, 40
+    rk = (0.1 * rng.randn(3, 3, f, 4 * f)).astype(np.float32)
+    h = rng.randn(b, hh, ww, f).astype(np.float32)
+    bj = F32_TILES[1][1]
+    packed = pack_recurrent_kernel(torch.from_numpy(rk), bj,
+                                   F32_CHUNK).numpy()
+    nb, k9, n4 = packed.shape
+    fp = k9 // 9
+    hp = np.pad(h, ((0, 0), (1, 1), (1, 1), (0, fp - f)))
+    parts = []
+    for rank in range(3):
+        cols = np.stack([hp[:, rank:rank + hh, dx:dx + ww]
+                         for dx in range(3)], axis=3)
+        rows = packed[:, 3 * rank * fp:3 * (rank + 1) * fp]
+        parts.append(np.einsum("mk,bkn->mbn", cols.reshape(-1, 3 * fp),
+                               rows))
+    total = (parts[0] + parts[1]) + parts[2]
+    got = total.reshape(-1, nb, 4, bj).transpose(0, 2, 1, 3).reshape(
+        -1, 4, nb * bj)[:, :, :f].reshape(b, hh, ww, 4 * f)
+    want = torch.nn.functional.conv2d(
+        torch.from_numpy(h).permute(0, 3, 1, 2),
+        torch.from_numpy(rk).permute(3, 2, 0, 1), padding=1)
+    np.testing.assert_allclose(got, want.permute(0, 2, 3, 1).numpy(),
+                               rtol=0, atol=1e-5)
 
 
 def _jax_vjps(zx, rk, g, hard_sig):

@@ -8,10 +8,11 @@ tensor it launches ``csrc/convlstm.cu`` once per time step; on a CPU tensor
 it runs :func:`convlstm_seq_plain`, the same arithmetic in plain PyTorch
 with the same rounding points (f32 accumulation and gate math, h and c
 stored in the I/O dtype between steps).  The kernel has two routes by
-dtype: bf16 on the tensor cores, with ``rk`` first packed by
-:func:`pack_recurrent_kernel` for the tile that :func:`choose_tile` picks,
-and f32 on the CUDA cores.  There is no fallback from the kernel to the
-plain version.  The gradient comes from :class:`ConvLSTMSeqFunction`, whose
+dtype, each with ``rk`` first packed by :func:`pack_recurrent_kernel` for
+the tile the route's rule picks: bf16 on the tensor cores
+(:func:`choose_tile`), and f32 on the CUDA cores (:func:`choose_tile_f32`,
+which also splits the taps over a cluster of blocks).  There is no
+fallback from the kernel to the plain version.  The gradient comes from :class:`ConvLSTMSeqFunction`, whose
 backward replays the recurrence.
 
 The kernel library is built and bound at first use by
@@ -47,17 +48,45 @@ def choose_tile(m: int, f: int, sms: int = 132) -> int:
     return 0 if -(-m // bm) * -(-f // bj) >= sms else 1
 
 
-def pack_recurrent_kernel(rk: torch.Tensor, bj: int) -> torch.Tensor:
-    """(3, 3, F, 4F) -> the bf16 route's slab (ceil(F/bj), 9*Fp, 4*bj),
-    Fp = F rounded up to ``K_CHUNK``: block ``jb`` of ``bj`` channels reads
-    the contiguous (9*Fp, 4*bj) operand whose row ``tap*Fp + k`` and column
+# The f32 route's stage depth and tiles: code -> (pixels BM, channels BJ,
+# split), where a cluster of ``split`` blocks shares one BM x BJ output
+# tile and each block multiplies 9 / split of the taps (split 3: one tap
+# row each).  Each launch passes BM, BJ, F32_CHUNK and the split to the C
+# entry, which refuses any that csrc/convlstm.cu does not build (BK,
+# F32Large, F32Small, SPLIT 1 or 3).
+F32_CHUNK = 16
+F32_TILES = {0: (64, 32, 1), 1: (64, 32, 3), 2: (32, 32, 3)}
+
+
+def f32_blocks(m: int, f: int, code: int) -> int:
+    """Blocks per step of the f32 route's tile ``code``."""
+    bm, bj, split = F32_TILES[code]
+    return -(-m // bm) * -(-f // bj) * split
+
+
+def choose_tile_f32(m: int, f: int, sms: int = 132) -> int:
+    """The f32 route's tile for M = B*H*W pixels and F channels: the first
+    of F32_TILES (the largest tile, then the fewest splits) that gives at
+    least one block per SM, else the last (the most blocks)."""
+    for code in F32_TILES:
+        if f32_blocks(m, f, code) >= sms:
+            return code
+    return max(F32_TILES)
+
+
+def pack_recurrent_kernel(rk: torch.Tensor, bj: int,
+                          chunk: int = K_CHUNK) -> torch.Tensor:
+    """(3, 3, F, 4F) -> a route's slab (ceil(F/bj), 9*Fp, 4*bj), Fp = F
+    rounded up to the route's stage depth ``chunk`` (``K_CHUNK`` for bf16,
+    ``F32_CHUNK`` for f32): block ``jb`` of ``bj`` channels reads the
+    contiguous (9*Fp, 4*bj) operand whose row ``tap*Fp + k`` and column
     ``g*bj + j`` hold ``rk[tap // 3, tap % 3, k, g*F + jb*bj + j]``, zero
     where ``k`` or ``jb*bj + j`` is not below F.  Plain torch ops, so it
     runs where ``rk`` lies and keeps its dtype."""
     if bj % 8:
         raise ValueError(f"bj must be a multiple of 8; got {bj}")
     f = rk.shape[2]
-    fp = -(-f // K_CHUNK) * K_CHUNK
+    fp = -(-f // chunk) * chunk
     nb = -(-f // bj)
     w = rk.reshape(9, f, 4, f)                       # tap, k, gate, j
     w = F.pad(w, (0, nb * bj - f, 0, 0, 0, fp - f))  # j, then k
@@ -121,21 +150,28 @@ def convlstm_seq_plain(zx: torch.Tensor, rk: torch.Tensor, *,
 
 
 _STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
-def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
-                     hard_sig: bool) -> torch.Tensor:
-    """T launches of the step kernel on ``zx``'s device and current stream."""
+def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor, hard_sig: bool,
+                     f32_tile: int | None = None) -> torch.Tensor:
+    """T launches of the step kernel on ``zx``'s device and current stream.
+    ``f32_tile`` names an F32_TILES code in place of the rule's (for timing
+    the candidates; None: the rule)."""
     step = bind("convlstm", "windtpu_convlstm_step", _STEP_ARGTYPES)
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
-    rk = rk.to(zx.dtype).contiguous()
-    bm = bj = 0
+    sms = torch.cuda.get_device_properties(zx.device).multi_processor_count
+    split = 1
     if zx.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(zx.device).multi_processor_count
         bm, bj = TILES[choose_tile(b * h * w, f, sms)]
-        rk = pack_recurrent_kernel(rk, bj)
+        chunk = K_CHUNK
+    else:
+        if f32_tile is None:
+            f32_tile = choose_tile_f32(b * h * w, f, sms)
+        bm, bj, split = F32_TILES[f32_tile]
+        chunk = F32_CHUNK
+    rk = pack_recurrent_kernel(rk.to(zx.dtype), bj, chunk)
     y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
     c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
     with torch.cuda.device(zx.device):
@@ -143,7 +179,7 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
         for s in range(t):
             err = step(_DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
                        y.data_ptr(), c.data_ptr(), b, t, h, w, f, s,
-                       int(hard_sig), bm, bj, K_CHUNK, stream)
+                       int(hard_sig), bm, bj, chunk, split, stream)
             if err:
                 raise RuntimeError(
                     f"convlstm kernel launch failed at step {s}: CUDA error "

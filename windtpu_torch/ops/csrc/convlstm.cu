@@ -14,14 +14,13 @@
 //
 // Layouts (all contiguous): zx (B, T, H, W, 4F) in the I/O type; y (B, T, H,
 // W, F), which also holds h_{t-1} for step t; c (B, H, W, F), scratch owned
-// by the caller.  The caller loops over t.  The recurrent kernel comes in two
-// forms, one per route:
-//   - f32: rk (3, 3, F, 4F) as it is;
-//   - bf16: the packed slab of ops/convlstm.py:pack_recurrent_kernel,
-//     (ceil(F/BJ), 9*Fp, 4*BJ) with Fp = F rounded up to KC = 32: block jb
-//     of BJ channels reads one contiguous (9*Fp x 4*BJ) operand, rows
-//     tap-major then channel (zero rows for channels >= F), columns [g][j]
-//     (zero columns for channels >= F).
+// by the caller.  The caller loops over t.  Both routes take the recurrent
+// kernel as the packed slab of ops/convlstm.py:pack_recurrent_kernel,
+// (ceil(F/BJ), 9*Fp, 4*BJ) in the I/O type, with Fp = F rounded up to the
+// route's stage depth (KC = 32 for bf16, BK = 16 for f32): block jb of BJ
+// channels reads one contiguous (9*Fp x 4*BJ) operand, rows tap-major then
+// channel (zero rows for channels >= F), columns [g][j] (zero columns for
+// channels >= F).
 //
 // What bounds it.  At the generator's shape (B=16, T=24, 24x24, F=128, bf16)
 // one step is a GEMM of M = B*H*W = 9216 pixels, N = 4F = 512 gate columns
@@ -81,11 +80,46 @@
 // state in L2 across steps, and warp specialisation (a producer warp for
 // the copies).
 //
-// The f32 route (the parity type) stays on the CUDA cores in full f32: a
-// 64 x 64-channel tile with a 4 x (4 x 4) register tile per thread.  TF32
-// tensor cores would keep about three decimal digits and break the 1e-4
-// parity with the plain version that the tests hold.
+// The f32 route (the parity type: every train_main, whose ModelConfig
+// computes in f32, the f32 downscale and the f32 remat passes).
+//
+// What bounds it.  It stays in full f32 on the CUDA cores: 1xTF32 on the
+// tensor cores keeps about three decimal digits of each operand and breaks
+// the 1e-4 parity with the plain version that the tests and the smoke hold
+// (a 3xTF32 split, which would keep it, is left for later).  So it is bound
+// by operations at the 67 TFLOP/s f32 peak: at train_main's shape (B=16,
+// T=6, 8x8, F=128) one step is a GEMM of M = 1024, N = 512, K = 1152, 1.21
+// GFLOP, 18 us at that peak, 0.090 ms for the 5 products of a sequence.
+//
+// What the design does about it.  Such a GEMM is too small to fill 132 SMs
+// with large tiles (a 64 x 64-channel tile gave 32 blocks), so the tile and
+// a split over the taps follow the shape (ops/convlstm.py:choose_tile_f32)
+// until there is at least one block per SM:
+//   - split 3: a cluster of 3 blocks shares one output tile, and rank r
+//     multiplies tap row dy = r - 1 (taps 3r .. 3r + 2, K = 3F of the 9F).
+//     Ranks 1 and 2 leave their f32 partial sums in their own shared memory
+//     (over the ring, which they no longer need); after cluster.sync() rank
+//     0 reads them through distributed shared memory and adds them in the
+//     fixed order rank 0 + rank 1 + rank 2, then runs the gate epilogue
+//     alone.  No atomics: the result is bitwise repeatable;
+//   - tiles of BM = 64 or 32 pixels x BJ = 32 channels (128 gate columns),
+//     a 4 pixel x (4 gates x 4 channels) register tile per thread, so each
+//     k step is 64 FFMAs against one 16-byte A load and four 16-byte B
+//     loads from shared memory.  A thread's pixels are ty + i * (BM / 4):
+//     the four rows a warp reads at once are consecutive and fall in
+//     distinct banks (A rows are padded by 4 floats).
+// Staging is a ring of STAGES_F32 = 3 buffers filled by cp.async, so the
+// loads of the next two stages are in flight while one is multiplied.  One
+// stage is one tap and BK = 16 channels: the A tile is the im2col gather of
+// h_{t-1} at that tap, 16-byte copies of 4 channels where F % 4 == 0 (with
+// cp.async's zero-fill for SAME padding, channels >= F and pixels >= M),
+// else 4-byte copies, element by element (a template flag); the B tile is
+// BK contiguous rows of the packed f32 slab, 16-byte copies.  The gate math
+// is the same __fmul_rn/__fadd_rn cell() as the bf16 route's, with h and c
+// stored in f32; where F % 4 == 0 the epilogue reads zx and c and writes c
+// and y as float4.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -94,18 +128,7 @@
 
 namespace {
 
-// ---- The f32 route: CUDA cores (the parity type) ----
-
-constexpr int BM = 64;        // pixels per block
-constexpr int BJ = 64;        // channels per block (x4 gates = 256 columns)
-constexpr int BK = 16;        // depth per shared-memory stage
-constexpr int TM = 4;         // pixels per thread
-constexpr int TJ = 4;         // channels per thread (per gate)
-constexpr int THREADS = (BM / TM) * (BJ / TJ);  // 256
-
-static_assert(THREADS == 256, "tile shape and thread count disagree");
-static_assert(BM * BK == 4 * THREADS, "A tile: four loads per thread");
-static_assert(4 * BJ == THREADS, "B tile: one column per thread");
+// ---- Shared by both routes ----
 
 // Keras hard_sigmoid clip(0.2 x + 0.5, 0, 1), or the logistic sigmoid.
 // Explicit _rn operations keep the compiler from contracting into an FMA,
@@ -126,138 +149,28 @@ __device__ __forceinline__ void cell(float zi, float zf, float zc, float zo,
   h_new = __fmul_rn(gate(zo, hard), tanhf(c_new));
 }
 
-__global__ void __launch_bounds__(THREADS)
-convlstm_step_kernel(const float* __restrict__ zx,
-                     const float* __restrict__ rk, float* __restrict__ y,
-                     float* __restrict__ c, int B, int Tn, int H, int W, int F,
-                     int t, bool hard) {
-  __shared__ __align__(16) float As[BM][BK];       // h_{t-1}, pixel-major
-  __shared__ __align__(16) float Bs[BK][4 * BJ];   // rk, gate-major columns
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  const int tid = threadIdx.x;
-  const int HW = H * W;
-  const long long M = (long long)B * HW;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int j0 = blockIdx.y * BJ;
-  const size_t F4 = 4 * (size_t)F;
-  const int tx = tid % (BJ / TJ);  // channel group
-  const int ty = tid / (BJ / TJ);  // pixel group
-
-  float acc[TM][4][TJ];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int q = 0; q < TJ; ++q) acc[i][g][q] = 0.0f;
-
-  if (t > 0) {
-    // A loads: rows a_m + 16 r of the tile, depth column a_k.
-    const int a_k = tid % BK;
-    const int a_m = tid / BK;
-    int a_b[4], a_y[4], a_x[4];
-    bool a_ok[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const long long m = m0 + a_m + 16 * r;
-      a_ok[r] = m < M;
-      const long long mm = a_ok[r] ? m : 0;
-      a_b[r] = (int)(mm / HW);
-      const int p = (int)(mm % HW);
-      a_y[r] = p / W;
-      a_x[r] = p % W;
-    }
-    // B loads: column n = tid (gate g, channel jj), rows 0..BK-1.
-    const int b_g = tid / BJ;
-    const int b_j = j0 + tid % BJ;
-    const bool b_ok = b_j < F;
-
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3 - 1;
-      const int dx = tap % 3 - 1;
-      for (int k0 = 0; k0 < F; k0 += BK) {
-        const int k = k0 + a_k;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int sy = a_y[r] + dy;
-          const int sx = a_x[r] + dx;
-          float v = 0.0f;
-          if (a_ok[r] && k < F && sy >= 0 && sy < H && sx >= 0 && sx < W) {
-            const size_t row =
-                ((size_t)a_b[r] * Tn + (t - 1)) * HW + (size_t)sy * W + sx;
-            v = y[row * F + k];
-          }
-          As[a_m + 16 * r][a_k] = v;
-        }
-#pragma unroll
-        for (int r = 0; r < BK; ++r) {
-          const int kk = k0 + r;
-          float v = 0.0f;
-          if (b_ok && kk < F) {
-            v = rk[((size_t)tap * F + kk) * F4 + (size_t)b_g * F + b_j];
-          }
-          Bs[r][tid] = v;
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int kq = 0; kq < BK; kq += 4) {
-          float4 a4[TM];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            a4[i] = *reinterpret_cast<const float4*>(&As[ty * TM + i][kq]);
-          }
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            float bv[4][TJ];
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              const float4 b4 = *reinterpret_cast<const float4*>(
-                  &Bs[kq + s][g * BJ + tx * TJ]);
-              bv[g][0] = b4.x;
-              bv[g][1] = b4.y;
-              bv[g][2] = b4.z;
-              bv[g][3] = b4.w;
-            }
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              const float a = s == 0 ? a4[i].x
-                            : s == 1 ? a4[i].y
-                            : s == 2 ? a4[i].z
-                                     : a4[i].w;
-#pragma unroll
-              for (int g = 0; g < 4; ++g)
-#pragma unroll
-                for (int q = 0; q < TJ; ++q)
-                  acc[i][g][q] = fmaf(a, bv[g][q], acc[i][g][q]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  // Epilogue: the four gates of each (pixel, channel) are in this thread.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    const int b = (int)(m / HW);
-    const int p = (int)(m % HW);
-    const size_t step_row = ((size_t)b * Tn + t) * HW + p;
-    const size_t c_row = (size_t)b * HW + p;
-#pragma unroll
-    for (int q = 0; q < TJ; ++q) {
-      const int j = j0 + tx * TJ + q;
-      if (j >= F) continue;
-      const float* z = zx + step_row * F4 + j;
-      const float c_prev = t > 0 ? c[c_row * F + j] : 0.0f;
-      cell(z[0] + acc[i][0][q], z[F] + acc[i][1][q],
-           z[2 * (size_t)F] + acc[i][2][q], z[3 * (size_t)F] + acc[i][3][q],
-           c_prev, hard, c[c_row * F + j], y[step_row * F + j]);
-    }
-  }
+// 16-byte copy; src_bytes = 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4-byte copy; src_bytes = 0 writes 4 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 
@@ -294,24 +207,6 @@ struct Tile {
 };
 using LargeTile = Tile<144, 32, 3, 2>;   // 192 threads
 using SmallTile = Tile<64, 16, 2, 2>;    // 128 threads
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte copy; src_bytes = 0 writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
@@ -599,29 +494,292 @@ convlstm_step_tc(const __nv_bfloat16* __restrict__ zx,
   }
 }
 
-int launch_f32(const void* zx, const void* rk, void* y, void* c, int B,
-               int Tn, int H, int W, int F, int t, int hard_sig,
-               void* stream) {
-  const long long M = (long long)B * H * W;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BJ - 1) / BJ));
-  convlstm_step_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(zx), static_cast<const float*>(rk),
-      static_cast<float*>(y), static_cast<float*>(c), B, Tn, H, W, F, t,
-      hard_sig != 0);
-  return (int)cudaGetLastError();
+// ---- The f32 route: CUDA cores (the parity type) ----
+
+constexpr int BK = 16;          // depth per stage: one tap, BK channels
+constexpr int STAGES_F32 = 3;   // cp.async ring
+constexpr int TM = 4;           // pixels per thread
+constexpr int TJ = 4;           // channels per thread (per gate)
+constexpr int A_PAD = 4;        // floats of padding per shared A row
+
+template <int BM_, int BJ_>
+struct F32Tile {
+  static constexpr int BM = BM_;              // pixels per output tile
+  static constexpr int BJ = BJ_;              // channels per output tile
+  static constexpr int BN = 4 * BJ_;          // gate columns per tile
+  static constexpr int TX = BJ_ / TJ;         // channel groups
+  static constexpr int TY = BM_ / TM;         // pixel groups
+  static constexpr int THREADS = TX * TY;
+  static constexpr int MIN_BLOCKS = 512 / THREADS;  // at most 128 registers
+  static constexpr int AS = BK + A_PAD;       // A row stride (floats)
+  static constexpr int A_ELEMS = BM_ * AS;
+  static constexpr int STAGE_ELEMS = A_ELEMS + BK * BN;
+  static constexpr int RING_ELEMS = STAGES_F32 * STAGE_ELEMS;
+  static constexpr int PARTIAL_ELEMS = BM_ * BN;   // one rank's partial sums
+  static constexpr size_t SMEM =
+      4 * (size_t)(RING_ELEMS > PARTIAL_ELEMS ? RING_ELEMS : PARTIAL_ELEMS);
+  static constexpr int A_ITERS = BM_ * (BK / 4) / THREADS;  // 16-B copies
+  static constexpr int B_ITERS = BK * BN / 4 / THREADS;
+  static_assert(TX == 8, "a quarter warp reads one 128-byte B row segment");
+  static_assert(THREADS % 32 == 0 && TY % 4 == 0, "warps of four pixel rows");
+  static_assert(BM_ * (BK / 4) % THREADS == 0, "A copies per thread");
+  static_assert(BK * BN / 4 % THREADS == 0, "B copies per thread");
+};
+using F32Large = F32Tile<64, 32>;   // 128 threads
+using F32Small = F32Tile<32, 32>;   // 64 threads
+
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// cudaFuncSetAttribute once per kernel and device: a host call that each
-// of a sequence's launches would otherwise pay.
-template <class C, bool VEC>
-cudaError_t opt_in() {
-  static bool done[64] = {};
+// SPLIT: blocks per cluster that share one output tile (1, 3 or 6).  Rank
+// r of a cluster of 3 or 6 multiplies tap row r % 3 over channel part r / 3
+// of SPLIT / 3 (whole BK chunks).  VEC: F % 4 == 0, so the A gather is
+// 16-byte copies of 4 channels and the epilogue moves float4s.
+template <class C, int SPLIT, bool VEC>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+convlstm_step_f32(const float* __restrict__ zx,
+                  const float* __restrict__ wpack, float* __restrict__ y,
+                  float* __restrict__ c, int B, int Tn, int H, int W, int F,
+                  int Fp, int t, bool hard) {
+  static_assert(SPLIT == 1 || SPLIT == 3 || SPLIT == 6,
+                "taps split by whole rows");
+  constexpr int TAPS = SPLIT == 1 ? 9 : 3;
+  constexpr int PARTS = SPLIT == 1 ? 1 : SPLIT / 3;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
+  int rank = 0;
+  if constexpr (SPLIT > 1) {
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+  }
+  const int HW = H * W;
+  const int M = B * HW;
+  const int m0 = (blockIdx.x / SPLIT) * C::BM;
+  const int j0 = blockIdx.y * C::BJ;
+  const int tap0 = SPLIT == 1 ? 0 : rank % 3 * 3;
+  const int part = SPLIT == 1 ? 0 : rank / 3;
+  const int c_lo = Fp / BK * part / PARTS;          // this rank's chunks
+  const int chunks = Fp / BK * (part + 1) / PARTS - c_lo;
+  const int KT = t > 0 ? TAPS * chunks : 0;
+  // Block blockIdx.y's slab; stage kt is rows (tap0 + kt / chunks) * Fp +
+  // (c_lo + kt % chunks) * BK onwards.
+  const float* wblk = wpack + (size_t)blockIdx.y * 9 * Fp * C::BN;
+
+  float acc[TM][4][TJ];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) acc[i][g][q] = 0.0f;
+
+  if (KT > 0) {
+    // This thread's 16-byte A copies: row r = (tid + it*THREADS) / (BK/4),
+    // fixed across stages, so its pixel is decoded once.
+    int a_py[C::A_ITERS], a_px[C::A_ITERS];
+    size_t a_base[C::A_ITERS];
+#pragma unroll
+    for (int it = 0; it < C::A_ITERS; ++it) {
+      const int m = m0 + (tid + it * C::THREADS) / (BK / 4);
+      const int mm = m < M ? m : 0;
+      const int b = mm / HW;
+      const int p = mm % HW;
+      a_py[it] = m < M ? p / W : -100;   // -100: never inside the image
+      a_px[it] = p % W;
+      a_base[it] = ((size_t)b * Tn + (t - 1)) * HW;
+    }
+
+    auto load_stage = [&](int kt, int slot) {
+      float* As = smem + slot * C::STAGE_ELEMS;
+      float* Bs = As + C::A_ELEMS;
+      const int tap = tap0 + kt / chunks;
+      const int c0 = (c_lo + kt % chunks) * BK;
+      const int dy = tap / 3 - 1;
+      const int dx = tap % 3 - 1;
+      const float* bsrc = wblk + ((size_t)tap * Fp + c0) * C::BN;
+#pragma unroll
+      for (int it = 0; it < C::B_ITERS; ++it) {
+        const int i = tid + it * C::THREADS;
+        cp_async16(smem_u32(Bs + i * 4), bsrc + (size_t)i * 4, 16);
+      }
+      if constexpr (VEC) {
+#pragma unroll
+        for (int it = 0; it < C::A_ITERS; ++it) {
+          const int i = tid + it * C::THREADS;
+          const int r = i / (BK / 4);
+          const int ch = c0 + (i % (BK / 4)) * 4;
+          const int sy = a_py[it] + dy;
+          const int sx = a_px[it] + dx;
+          const bool in = ch < F && sy >= 0 && sy < H && sx >= 0 && sx < W;
+          const float* src =
+              in ? y + (a_base[it] + (size_t)sy * W + sx) * F + ch : y;
+          cp_async16(smem_u32(As + r * C::AS + (i % (BK / 4)) * 4), src,
+                     in ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < C::BM * BK; i += C::THREADS) {
+          const int r = i / BK;
+          const int ch = c0 + i % BK;
+          const int m = m0 + r;
+          const float* src = y;
+          bool in = false;
+          if (m < M && ch < F) {
+            const int b = m / HW;
+            const int p = m % HW;
+            const int sy = p / W + dy;
+            const int sx = p % W + dx;
+            in = sy >= 0 && sy < H && sx >= 0 && sx < W;
+            if (in) {
+              src = y + (((size_t)b * Tn + (t - 1)) * HW + (size_t)sy * W +
+                         sx) * F + ch;
+            }
+          }
+          cp_async4(smem_u32(As + r * C::AS + i % BK), src, in ? 4 : 0);
+        }
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES_F32 - 1; ++s) {
+      if (s < KT) load_stage(s, s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      // Stage kt has landed; every thread is done with stage kt - 1, whose
+      // slot the prefetch below refills.
+      cp_async_wait<STAGES_F32 - 2>();
+      __syncthreads();
+      if (kt + STAGES_F32 - 1 < KT) {
+        load_stage(kt + STAGES_F32 - 1, (kt + STAGES_F32 - 1) % STAGES_F32);
+      }
+      cp_async_commit();
+      const float* As = smem + (kt % STAGES_F32) * C::STAGE_ELEMS;
+      const float* Bs = As + C::A_ELEMS;
+#pragma unroll
+      for (int kq = 0; kq < BK; kq += 4) {
+        float4 a4[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          a4[i] = *reinterpret_cast<const float4*>(
+              As + (ty + i * C::TY) * C::AS + kq);
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          float4 bv[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            bv[g] = *reinterpret_cast<const float4*>(
+                Bs + (kq + s) * C::BN + g * C::BJ + tx * TJ);
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float a = lane4(a4[i], s);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+              for (int q = 0; q < TJ; ++q)
+                acc[i][g][q] = fmaf(a, lane4(bv[g], q), acc[i][g][q]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  if constexpr (SPLIT > 1) {
+    // Ranks 1.. leave their partial sums over the ring (every thread is done
+    // with it after this barrier), as float4 e of thread tid at e*THREADS +
+    // tid; rank 0 adds them in rank order and alone runs the epilogue.
+    auto cluster = cooperative_groups::this_cluster();
+    float4* part = reinterpret_cast<float4*>(smem);
+    __syncthreads();
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          part[(i * 4 + g) * C::THREADS + tid] = make_float4(
+              acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
+    }
+    cluster.sync();
+    if (rank == 0) {
+#pragma unroll
+      for (int r = 1; r < SPLIT; ++r) {
+        const float4* remote = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float4 v = remote[(i * 4 + g) * C::THREADS + tid];
+#pragma unroll
+            for (int q = 0; q < TJ; ++q) acc[i][g][q] += lane4(v, q);
+          }
+      }
+    }
+    // Ranks 1.. keep their shared memory until rank 0 has read it.
+    cluster.sync();
+    if (rank != 0) return;
+  }
+
+  // Epilogue: the four gates of each (pixel, channel) are in this thread.
+  const size_t F4 = 4 * (size_t)F;
+  const int j = j0 + tx * TJ;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + i * C::TY;
+    if (m >= M) continue;
+    const int b = m / HW;
+    const size_t step_row = ((size_t)b * Tn + t) * HW + (m - b * HW);
+    const size_t c_row = (size_t)m;
+    const float* z = zx + step_row * F4 + j;
+    if constexpr (VEC) {
+      if (j >= F) continue;   // F % 4 == 0: all four channels or none
+      float4 zg[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        zg[g] = *reinterpret_cast<const float4*>(z + g * (size_t)F);
+      }
+      const float4 cp =
+          t > 0 ? *reinterpret_cast<const float4*>(c + c_row * F + j)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float cn[TJ], hn[TJ];
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) {
+        cell(lane4(zg[0], q) + acc[i][0][q], lane4(zg[1], q) + acc[i][1][q],
+             lane4(zg[2], q) + acc[i][2][q], lane4(zg[3], q) + acc[i][3][q],
+             lane4(cp, q), hard, cn[q], hn[q]);
+      }
+      *reinterpret_cast<float4*>(c + c_row * F + j) =
+          make_float4(cn[0], cn[1], cn[2], cn[3]);
+      *reinterpret_cast<float4*>(y + step_row * F + j) =
+          make_float4(hn[0], hn[1], hn[2], hn[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) {
+        if (j + q >= F) continue;
+        const float c_prev = t > 0 ? c[c_row * F + j + q] : 0.0f;
+        cell(z[q] + acc[i][0][q], z[F + q] + acc[i][1][q],
+             z[2 * (size_t)F + q] + acc[i][2][q],
+             z[3 * (size_t)F + q] + acc[i][3][q], c_prev, hard,
+             c[c_row * F + j + q], y[step_row * F + j + q]);
+      }
+    }
+  }
+}
+
+// cudaFuncSetAttribute once per kernel and device (done is the launcher's
+// own flag array): a host call that each of a sequence's launches would
+// otherwise pay.
+cudaError_t opt_in(bool (&done)[64], const void* kernel, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(convlstm_step_tc<C, VEC>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::SMEM);
+                             (int)smem);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
@@ -631,7 +789,9 @@ int launch_tc(const void* zx, const void* wpack, void* y, void* c, int B,
               int Tn, int H, int W, int F, int t, int hard_sig,
               void* stream) {
   auto kernel = convlstm_step_tc<C, VEC>;
-  cudaError_t err = opt_in<C, VEC>();
+  static bool done[64] = {};
+  cudaError_t err =
+      opt_in(done, reinterpret_cast<const void*>(kernel), C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int M = B * H * W;
   const int Fp = (F + KC - 1) / KC * KC;
@@ -657,24 +817,95 @@ int launch_bf16(const void* zx, const void* wpack, void* y, void* c, int B,
                              stream);
 }
 
+// One launch of the f32 route: ceil(M/BM) clusters of SPLIT blocks along x,
+// ceil(F/BJ) channel tiles along y.
+template <class C, int SPLIT, bool VEC>
+int launch_cuda_cores(const void* zx, const void* wpack, void* y, void* c,
+                      int B, int Tn, int H, int W, int F, int t, int hard_sig,
+                      void* stream) {
+  auto kernel = convlstm_step_f32<C, SPLIT, VEC>;
+  static bool done[64] = {};
+  cudaError_t err =
+      opt_in(done, reinterpret_cast<const void*>(kernel), C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int M = B * H * W;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = SPLIT;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)((M + C::BM - 1) / C::BM * SPLIT),
+                        (unsigned)((F + C::BJ - 1) / C::BJ));
+  config.blockDim = dim3(C::THREADS);
+  config.dynamicSmemBytes = C::SMEM;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = cluster;
+  config.numAttrs = SPLIT > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(zx),
+                           static_cast<const float*>(wpack),
+                           static_cast<float*>(y), static_cast<float*>(c), B,
+                           Tn, H, W, F, (F + BK - 1) / BK * BK, t,
+                           hard_sig != 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <class C>
+int launch_f32(const void* zx, const void* wpack, void* y, void* c, int B,
+               int Tn, int H, int W, int F, int t, int hard_sig, int split,
+               void* stream) {
+  const bool vec = F % 4 == 0;
+  if (split == 1) {
+    return vec ? launch_cuda_cores<C, 1, true>(zx, wpack, y, c, B, Tn, H, W,
+                                               F, t, hard_sig, stream)
+               : launch_cuda_cores<C, 1, false>(zx, wpack, y, c, B, Tn, H,
+                                                W, F, t, hard_sig, stream);
+  }
+  if (split == 3) {
+    return vec ? launch_cuda_cores<C, 3, true>(zx, wpack, y, c, B, Tn, H, W,
+                                               F, t, hard_sig, stream)
+               : launch_cuda_cores<C, 3, false>(zx, wpack, y, c, B, Tn, H,
+                                                W, F, t, hard_sig, stream);
+  }
+  if (split == 6) {
+    return vec ? launch_cuda_cores<C, 6, true>(zx, wpack, y, c, B, Tn, H, W,
+                                               F, t, hard_sig, stream)
+               : launch_cuda_cores<C, 6, false>(zx, wpack, y, c, B, Tn, H,
+                                                W, F, t, hard_sig, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// One recurrence step t.  dtype: 0 = float32 (rk as (3, 3, F, 4F), CUDA
-// cores), 1 = bfloat16 (rk packed for a tile, tensor cores).  bm, bj, kc
-// (bf16 only) name the tile the caller chose and packed the slab for
-// (ops/convlstm.py: TILES, K_CHUNK): BM 144 x BJ 32 or BM 64 x BJ 16, KC
-// 32.  Returns the cudaGetLastError() code of the launch (0 on success); an
-// unknown dtype, a tile this file does not build or another KC, or more
-// than 2^31 - 1 pixels, returns cudaErrorInvalidValue without launching.
+// One recurrence step t.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16
+// (tensor cores); rk is the route's packed slab.  bm, bj, kc and split name
+// the tile the caller chose and packed the slab for (ops/convlstm.py):
+// bf16 (TILES, K_CHUNK) BM 144 x BJ 32 or BM 64 x BJ 16, KC 32, split 1;
+// f32 (F32_TILES, F32_CHUNK) BM 64 or 32 x BJ 32, KC 16, split 1 or 3
+// blocks per cluster.  Returns the launch's error code (0 on success); an
+// unknown dtype, a tile or split this file does not build or another KC, or
+// more than 2^31 - 1 pixels, returns cudaErrorInvalidValue without
+// launching.
 extern "C" int windtpu_convlstm_step(int dtype, const void* zx, const void* rk,
                                      void* y, void* c, int B, int T, int H,
                                      int W, int F, int t, int hard_sig,
-                                     int bm, int bj, int kc, void* stream) {
+                                     int bm, int bj, int kc, int split,
+                                     void* stream) {
   if ((long long)B * H * W > 2147483647LL) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    return launch_f32(zx, rk, y, c, B, T, H, W, F, t, hard_sig, stream);
+  if (dtype == 0 && kc == BK) {
+    if (bm == F32Large::BM && bj == F32Large::BJ) {
+      return launch_f32<F32Large>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
+                                  split, stream);
+    }
+    if (bm == F32Small::BM && bj == F32Small::BJ) {
+      return launch_f32<F32Small>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
+                                  split, stream);
+    }
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype != 1 || kc != KC) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || kc != KC || split != 1) return (int)cudaErrorInvalidValue;
   if (bm == LargeTile::BM && bj == LargeTile::BJ) {
     return launch_bf16<LargeTile>(zx, rk, y, c, B, T, H, W, F, t, hard_sig,
                                   stream);
