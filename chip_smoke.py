@@ -19,8 +19,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
    split over the taps) chosen per shape, the times at the shapes of the
    downscale, training and ensemble paths (bf16) and of the downscale,
    train_main, its ranks and the prepare path (f32) beside cuDNN's convs,
-   each f32 tile candidate's time, and the gradients through its autograd
-   Function.
+   and the gradients through its autograd Function.
    K2 (spatial KS): also on identical fields, with NaNs and with values on
    the thresholds;
 4. reference: the flagship network in f32 with the bundled weights on a
@@ -326,7 +325,6 @@ def convlstm_kernel_phase() -> dict:
     from windtpu_torch.ops.convlstm import (
         F32_TILES,
         TILES,
-        _launch_sequence,
         choose_tile,
         choose_tile_f32,
         convlstm_seq,
@@ -406,8 +404,8 @@ def convlstm_kernel_phase() -> dict:
         return library
 
     # One card, one call: the kernel, cuDNN and the kernel again at each
-    # path's shape and type, the plain version at the main shape, and each
-    # f32 tile candidate.
+    # path's shape and type, and the plain version at the main shape.
+    # (python3 -m windtpu_torch.ops.convlstm_variants times each f32 tile.)
     stats = {}
     for shape, dtype, key in ((MAIN_SHAPE, torch.bfloat16, None),
                               (TRAIN_SHAPE, torch.bfloat16, "train"),
@@ -444,16 +442,6 @@ def convlstm_kernel_phase() -> dict:
             if key != "train":   # the gradient phase times that one
                 stats[f"{key}_ms"] = ms
         print(line)
-        if dtype == torch.float32:
-            b, t, h, w, f = shape
-            chosen = choose_tile_f32(b * h * w, f, sms)
-            for code, (bm, bj, split) in F32_TILES.items():
-                tile_ms = cuda_ms(lambda: _launch_sequence(
-                    zx, rk, True, f32_tile=code), iters=10)
-                print(f"  f32 tile BM {bm} x BJ {bj}, split {split}: "
-                      f"{tile_ms:.4f} ms ({flops / tile_ms / 1e9:.1f} "
-                      f"TFLOP/s), {f32_blocks(b * h * w, f, code)} CTAs"
-                      f"{' (the rule)' if code == chosen else ''}")
     stats.update(convlstm_gradient_phase())
     return stats
 

@@ -231,9 +231,9 @@ def test_f32_packed_slab_gemm_is_the_conv_step(f):
 
 
 @pytest.mark.parametrize("shape,code,blocks", [
-    ((16, 8, 8, 128), 1, 192),      # train_main: 16 x 4 tiles x 3 taps rows
-    ((8, 8, 8, 128), 2, 192),       # one of its two ranks: 16 x 4 x 3
-    ((2, 24, 24, 128), 1, 216),     # perceptual train_main: 18 x 4 x 3
+    ((16, 8, 8, 128), 1, 384),      # train_main: 32 x 4 tiles x 3 tap rows
+    ((8, 8, 8, 128), 1, 192),       # one of its two ranks: 16 x 4 x 3
+    ((2, 24, 24, 128), 1, 432),     # perceptual train_main: 36 x 4 x 3
     ((16, 24, 24, 128), 0, 576),    # downscale: 144 x 4, no split
 ])
 def test_f32_tile_fills_the_card(shape, code, blocks):
@@ -242,11 +242,11 @@ def test_f32_tile_fills_the_card(shape, code, blocks):
     assert f32_blocks(b * h * w, f, code) == blocks >= 132
 
 
-def test_f32_tile_rule_takes_the_most_blocks_below_one_per_sm():
-    assert choose_tile_f32(3 * 7 * 7, 40) == max(F32_TILES)
-    for code in F32_TILES:
-        bm, bj, split = F32_TILES[code]
-        assert bm % 16 == 0 and bj == 32 and split in (1, 3)
+def test_f32_tile_rule_splits_only_where_the_large_tile_leaves_sms_idle():
+    assert F32_TILES == {0: (64, 32, 1), 1: (32, 32, 3)}
+    assert choose_tile_f32(3 * 7 * 7, 40) == 1            # 30 blocks
+    assert choose_tile_f32(16 * 8 * 8, 128, sms=64) == 0  # 64 blocks
+    assert choose_tile_f32(16 * 8 * 8, 128, sms=65) == 1
 
 
 def test_tap_row_partial_sums_add_up_to_the_step():

@@ -12,8 +12,8 @@ dtype, each with ``rk`` first packed by :func:`pack_recurrent_kernel` for
 the tile the route's rule picks: bf16 on the tensor cores
 (:func:`choose_tile`), and f32 on the CUDA cores (:func:`choose_tile_f32`,
 which also splits the taps over a cluster of blocks).  There is no
-fallback from the kernel to the plain version.  The gradient comes from :class:`ConvLSTMSeqFunction`, whose
-backward replays the recurrence.
+fallback from the kernel to the plain version.  The gradient comes from
+:class:`ConvLSTMSeqFunction`, whose backward replays the recurrence.
 
 The kernel library is built and bound at first use by
 :mod:`windtpu_torch.ops._build`; nothing is compiled or loaded when this
@@ -53,9 +53,9 @@ def choose_tile(m: int, f: int, sms: int = 132) -> int:
 # tile and each block multiplies 9 / split of the taps (split 3: one tap
 # row each).  Each launch passes BM, BJ, F32_CHUNK and the split to the C
 # entry, which refuses any that csrc/convlstm.cu does not build (BK,
-# F32Large, F32Small, SPLIT 1 or 3).
+# F32Large or F32Small, SPLIT 1 or 3).
 F32_CHUNK = 16
-F32_TILES = {0: (64, 32, 1), 1: (64, 32, 3), 2: (32, 32, 3)}
+F32_TILES = {0: (64, 32, 1), 1: (32, 32, 3)}
 
 
 def f32_blocks(m: int, f: int, code: int) -> int:
@@ -65,13 +65,10 @@ def f32_blocks(m: int, f: int, code: int) -> int:
 
 
 def choose_tile_f32(m: int, f: int, sms: int = 132) -> int:
-    """The f32 route's tile for M = B*H*W pixels and F channels: the first
-    of F32_TILES (the largest tile, then the fewest splits) that gives at
-    least one block per SM, else the last (the most blocks)."""
-    for code in F32_TILES:
-        if f32_blocks(m, f, code) >= sms:
-            return code
-    return max(F32_TILES)
+    """The f32 route's tile for M = B*H*W pixels and F channels: the large
+    tile without a split where it gives at least one block per SM, else the
+    small tile split over the three tap rows (6x the blocks)."""
+    return 0 if f32_blocks(m, f, 0) >= sms else 1
 
 
 def pack_recurrent_kernel(rk: torch.Tensor, bj: int,
@@ -153,11 +150,9 @@ _STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
-def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor, hard_sig: bool,
-                     f32_tile: int | None = None) -> torch.Tensor:
-    """T launches of the step kernel on ``zx``'s device and current stream.
-    ``f32_tile`` names an F32_TILES code in place of the rule's (for timing
-    the candidates; None: the rule)."""
+def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
+                     hard_sig: bool) -> torch.Tensor:
+    """T launches of the step kernel on ``zx``'s device and current stream."""
     step = bind("convlstm", "windtpu_convlstm_step", _STEP_ARGTYPES)
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
@@ -167,9 +162,7 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor, hard_sig: bool,
         bm, bj = TILES[choose_tile(b * h * w, f, sms)]
         chunk = K_CHUNK
     else:
-        if f32_tile is None:
-            f32_tile = choose_tile_f32(b * h * w, f, sms)
-        bm, bj, split = F32_TILES[f32_tile]
+        bm, bj, split = F32_TILES[choose_tile_f32(b * h * w, f, sms)]
         chunk = F32_CHUNK
     rk = pack_recurrent_kernel(rk.to(zx.dtype), bj, chunk)
     y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)

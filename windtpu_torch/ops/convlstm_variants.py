@@ -2,7 +2,7 @@
 
 Builds copies of ``csrc/convlstm.cu`` with edits (another stage depth BK,
 ring length STAGES_F32, register budget, loop order, or a pass cut out),
-and times each against every tile and split the C entry builds, at the f32
+and times each with every tile and split the C entry builds, at the f32
 paths' shapes: train_main (16, 6, 8, 8, 128), one of its two ranks
 (8, 6, 8, 8, 128), the perceptual train_main (2, 24, 24, 24, 128) and the
 downscale (16, 24, 24, 24, 128).  Each variant is first held against the
@@ -36,7 +36,7 @@ from windtpu_torch.ops.convlstm import (
     pack_recurrent_kernel,
 )
 
-_REGS = "MIN_BLOCKS = 512 / THREADS;  // at most 128 registers"
+_REGS = "MIN_BLOCKS = 384 / THREADS;  // at most 170 registers"
 _FMA = "acc[i][g][q] = fmaf(a, lane4(bv[g], q), acc[i][g][q]);"
 _A = "const float a = lane4(a4[i], s);"
 _A_SCALAR = "const float a = As[(ty + i * C::TY) * C::AS + kq + s];"
@@ -58,22 +58,22 @@ _ORDER_B = """          for (int g = 0; g < 4; ++g)
 # name -> (BK, edits of the source); the first is the source as it is.
 VARIANTS = {
     "as is": (F32_CHUNK, []),
-    "<= 170 registers": (F32_CHUNK, [(_REGS, "MIN_BLOCKS = 384 / THREADS;")]),
+    "<= 128 registers": (F32_CHUNK, [(_REGS, "MIN_BLOCKS = 512 / THREADS;")]),
     "<= 255 registers": (F32_CHUNK, [(_REGS, "MIN_BLOCKS = 256 / THREADS;")]),
     "B operand innermost": (F32_CHUNK, [(_ORDER, _ORDER_B)]),
     "A by scalar loads": (F32_CHUNK, [(_A, _A_SCALAR)]),
-    "A by scalar loads, <= 170 registers": (F32_CHUNK, [
-        (_A, _A_SCALAR), (_REGS, "MIN_BLOCKS = 384 / THREADS;")]),
-    "BK 32, <= 170 registers": (32, [
-        ("constexpr int BK = 16;", "constexpr int BK = 32;"),
-        (_REGS, "MIN_BLOCKS = 384 / THREADS;")]),
+    "STAGES_F32 2": (F32_CHUNK, [("constexpr int STAGES_F32 = 3;",
+                                  "constexpr int STAGES_F32 = 2;")]),
+    "STAGES_F32 4": (F32_CHUNK, [("constexpr int STAGES_F32 = 3;",
+                                  "constexpr int STAGES_F32 = 4;")]),
+    "BK 8": (8, [("constexpr int BK = 16;", "constexpr int BK = 8;")]),
+    "BK 32": (32, [("constexpr int BK = 16;", "constexpr int BK = 32;")]),
     "cut: B once per kq": (F32_CHUNK, [
         ("Bs + (kq + s) * C::BN + g * C::BJ", "Bs + kq * C::BN + g * C::BJ")]),
     "cut: half the FFMAs": (F32_CHUNK, [
         (_FMA, "if (q < 2) " + _FMA)]),
 }
-TILES = [(64, 32, 1), (64, 32, 3), (64, 32, 6), (32, 32, 1), (32, 32, 3),
-         (32, 32, 6)]
+TILES = [(64, 32, 1), (64, 32, 3), (32, 32, 1), (32, 32, 3)]
 SHAPES = [(16, 6, 8, 8, 128), (8, 6, 8, 8, 128), (2, 24, 24, 24, 128),
           (16, 24, 24, 24, 128)]
 

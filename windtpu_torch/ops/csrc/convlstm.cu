@@ -50,9 +50,9 @@
 // c and writes c and y as bf16 pairs, all loads of an m16 tile first.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
-// limit: 1.17 to 1.29 ms per downscale sequence (194 to 211 TFLOP/s; the
-// f32 route 12.1 to 12.2 ms, cuDNN's 23 convs 0.72 to 0.78 ms) and 0.5 to
-// 1.2 ms at the training shape (2, 24, 24, 24, 128), where the 24 launches
+// limit: 1.17 to 1.29 ms per downscale sequence (194 to 211 TFLOP/s;
+// cuDNN's 23 convs 0.72 to 0.78 ms) and 0.5 to 1.2 ms at the training
+// shape (2, 24, 24, 24, 128), where the 24 launches
 // of 20 to 50 us each run at the host's launch rate; the bounds are 0.253
 // and 0.0316 ms.
 //
@@ -92,9 +92,13 @@
 // GFLOP, 18 us at that peak, 0.090 ms for the 5 products of a sequence.
 //
 // What the design does about it.  Such a GEMM is too small to fill 132 SMs
-// with large tiles (a 64 x 64-channel tile gave 32 blocks), so the tile and
-// a split over the taps follow the shape (ops/convlstm.py:choose_tile_f32)
-// until there is at least one block per SM:
+// with large tiles (the first f32 kernel's 64 x 64-channel tile gave 32
+// blocks at train_main's shape), so the tile and a split over the taps
+// follow the shape (ops/convlstm.py:choose_tile_f32): BM = 64 pixels x BJ =
+// 32 channels (128 gate columns, 128 threads) where that gives at least one
+// block per SM (the downscale: 576), else BM = 32 x BJ = 32 (64 threads)
+// split 3 (train_main 384 blocks, each of its two ranks 192, the
+// perceptual train_main 432):
 //   - split 3: a cluster of 3 blocks shares one output tile, and rank r
 //     multiplies tap row dy = r - 1 (taps 3r .. 3r + 2, K = 3F of the 9F).
 //     Ranks 1 and 2 leave their f32 partial sums in their own shared memory
@@ -102,12 +106,11 @@
 //     0 reads them through distributed shared memory and adds them in the
 //     fixed order rank 0 + rank 1 + rank 2, then runs the gate epilogue
 //     alone.  No atomics: the result is bitwise repeatable;
-//   - tiles of BM = 64 or 32 pixels x BJ = 32 channels (128 gate columns),
-//     a 4 pixel x (4 gates x 4 channels) register tile per thread, so each
-//     k step is 64 FFMAs against one 16-byte A load and four 16-byte B
-//     loads from shared memory.  A thread's pixels are ty + i * (BM / 4):
-//     the four rows a warp reads at once are consecutive and fall in
-//     distinct banks (A rows are padded by 4 floats).
+//   - a 4 pixel x (4 gates x 4 channels) register tile per thread, so each k
+//     step is 64 FFMAs against one 16-byte A load and four 16-byte B loads
+//     from shared memory.  A thread's pixels are ty + i * (BM / 4): the four
+//     rows a warp reads at once are consecutive and fall in distinct banks
+//     (A rows are padded by 4 floats).
 // Staging is a ring of STAGES_F32 = 3 buffers filled by cp.async, so the
 // loads of the next two stages are in flight while one is multiplied.  One
 // stage is one tap and BK = 16 channels: the A tile is the im2col gather of
@@ -118,6 +121,23 @@
 // is the same __fmul_rn/__fadd_rn cell() as the bf16 route's, with h and c
 // stored in f32; where F % 4 == 0 the epilogue reads zx and c and writes c
 // and y as float4.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit (cuDNN's T-1 recurrent convs in f32, TF32 off, in the same run):
+// train_main 0.281 ms per sequence (cuDNN 0.327, the first f32 kernel
+// 0.863), one of its ranks 0.192 (0.224), the perceptual train_main 1.271
+// (3.187, was 4.056), the downscale shape 7.41 (8.87, was 12.03); 16 to 34
+// TFLOP/s, 23 to 50% of the bound.  ptxas: 168 registers and no spills
+// (143 for the small tile unsplit, 128 for the large tile where F % 4 !=
+// 0), with __launch_bounds__ asking for 3 blocks of 128 threads or 6 of 64
+// per SM.
+// What holds it there is the FFMA stream itself (python3 -m
+// windtpu_torch.ops.convlstm_variants): halving the FFMAs nearly halves
+// the time, while cutting three quarters of the B loads saves 8 to 17%;
+// about half the FFMAs read two registers of one parity (a register-bank
+// conflict), 0.62 to 0.76 of them at 128 registers, where the kernel ran 5
+// to 11% slower.  A cluster of 6 (tap rows x channel halves), BK 8 or 32,
+// and 2 or 4 stages were no faster.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -510,7 +530,7 @@ struct F32Tile {
   static constexpr int TX = BJ_ / TJ;         // channel groups
   static constexpr int TY = BM_ / TM;         // pixel groups
   static constexpr int THREADS = TX * TY;
-  static constexpr int MIN_BLOCKS = 512 / THREADS;  // at most 128 registers
+  static constexpr int MIN_BLOCKS = 384 / THREADS;  // at most 170 registers
   static constexpr int AS = BK + A_PAD;       // A row stride (floats)
   static constexpr int A_ELEMS = BM_ * AS;
   static constexpr int STAGE_ELEMS = A_ELEMS + BK * BN;
@@ -532,20 +552,17 @@ __device__ __forceinline__ float lane4(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// SPLIT: blocks per cluster that share one output tile (1, 3 or 6).  Rank
-// r of a cluster of 3 or 6 multiplies tap row r % 3 over channel part r / 3
-// of SPLIT / 3 (whole BK chunks).  VEC: F % 4 == 0, so the A gather is
-// 16-byte copies of 4 channels and the epilogue moves float4s.
+// SPLIT: blocks per cluster that share one output tile, 1 or 3 (rank r
+// then multiplies tap row r, taps 3r .. 3r + 2).  VEC: F % 4 == 0, so the A
+// gather is 16-byte copies of 4 channels and the epilogue moves float4s.
 template <class C, int SPLIT, bool VEC>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 convlstm_step_f32(const float* __restrict__ zx,
                   const float* __restrict__ wpack, float* __restrict__ y,
                   float* __restrict__ c, int B, int Tn, int H, int W, int F,
                   int Fp, int t, bool hard) {
-  static_assert(SPLIT == 1 || SPLIT == 3 || SPLIT == 6,
-                "taps split by whole rows");
-  constexpr int TAPS = SPLIT == 1 ? 9 : 3;
-  constexpr int PARTS = SPLIT == 1 ? 1 : SPLIT / 3;
+  static_assert(SPLIT == 1 || SPLIT == 3, "taps split by whole rows");
+  constexpr int TAPS = 9 / SPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x;
@@ -559,14 +576,13 @@ convlstm_step_f32(const float* __restrict__ zx,
   const int M = B * HW;
   const int m0 = (blockIdx.x / SPLIT) * C::BM;
   const int j0 = blockIdx.y * C::BJ;
-  const int tap0 = SPLIT == 1 ? 0 : rank % 3 * 3;
-  const int part = SPLIT == 1 ? 0 : rank / 3;
-  const int c_lo = Fp / BK * part / PARTS;          // this rank's chunks
-  const int chunks = Fp / BK * (part + 1) / PARTS - c_lo;
+  const int chunks = Fp / BK;
   const int KT = t > 0 ? TAPS * chunks : 0;
-  // Block blockIdx.y's slab; stage kt is rows (tap0 + kt / chunks) * Fp +
-  // (c_lo + kt % chunks) * BK onwards.
-  const float* wblk = wpack + (size_t)blockIdx.y * 9 * Fp * C::BN;
+  const int tap0 = rank * TAPS;
+  // This rank's rows of block blockIdx.y's slab: taps tap0 .. tap0+TAPS-1,
+  // stage kt at row tap0 * Fp + kt * BK.
+  const float* wblk =
+      wpack + ((size_t)blockIdx.y * 9 + tap0) * (size_t)Fp * C::BN;
 
   float acc[TM][4][TJ];
 #pragma unroll
@@ -596,10 +612,10 @@ convlstm_step_f32(const float* __restrict__ zx,
       float* As = smem + slot * C::STAGE_ELEMS;
       float* Bs = As + C::A_ELEMS;
       const int tap = tap0 + kt / chunks;
-      const int c0 = (c_lo + kt % chunks) * BK;
+      const int c0 = (kt % chunks) * BK;
       const int dy = tap / 3 - 1;
       const int dx = tap % 3 - 1;
-      const float* bsrc = wblk + ((size_t)tap * Fp + c0) * C::BN;
+      const float* bsrc = wblk + (size_t)kt * BK * C::BN;
 #pragma unroll
       for (int it = 0; it < C::B_ITERS; ++it) {
         const int i = tid + it * C::THREADS;
@@ -847,8 +863,8 @@ int launch_cuda_cores(const void* zx, const void* wpack, void* y, void* c,
                            static_cast<float*>(y), static_cast<float*>(c), B,
                            Tn, H, W, F, (F + BK - 1) / BK * BK, t,
                            hard_sig != 0);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();   // and clears err
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 template <class C>
@@ -866,12 +882,6 @@ int launch_f32(const void* zx, const void* wpack, void* y, void* c, int B,
     return vec ? launch_cuda_cores<C, 3, true>(zx, wpack, y, c, B, Tn, H, W,
                                                F, t, hard_sig, stream)
                : launch_cuda_cores<C, 3, false>(zx, wpack, y, c, B, Tn, H,
-                                                W, F, t, hard_sig, stream);
-  }
-  if (split == 6) {
-    return vec ? launch_cuda_cores<C, 6, true>(zx, wpack, y, c, B, Tn, H, W,
-                                               F, t, hard_sig, stream)
-               : launch_cuda_cores<C, 6, false>(zx, wpack, y, c, B, Tn, H,
                                                 W, F, t, hard_sig, stream);
   }
   return (int)cudaErrorInvalidValue;
