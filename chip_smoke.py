@@ -58,9 +58,8 @@ Phases, each of which ends the script with a nonzero exit on failure:
     ``--reconstruction-coefficient 1.0`` at 96 px, T=24, batch 2 (where the
     bundled encoder loads, which it checks), seconds per step, peak memory
     and K1's launches;
-11. multi-GPU path (the card has one H100, and NCCL refuses two ranks on
-    one card, so two ranks share it under gloo: these runs test
-    correctness, not speed): (i) ``cli.train_main`` with
+11. multi-GPU path (NCCL refuses two ranks on one card, so two ranks
+    share card 0 under gloo: these runs test correctness, not speed): (i) ``cli.train_main`` with
     ``--coordinator-address/--num-processes 1/--process-id 0`` over NCCL
     at the train entry's shape, 2 steps, against a plain single-process
     ``train_main``; (ii) the same at 2 gloo ranks on ``cuda:0``: ranks
@@ -71,7 +70,22 @@ Phases, each of which ends the script with a nonzero exit on failure:
     bf16 limit) and a 2-member ensemble over an ``ensemble`` axis of 2
     (against the one-member runs of its seeds, exactly).  Each rank's
     seconds, peak memory, launches and all-reduce bytes;
-12. A13 path: one train step at the training path's shape from one saved
+12. multi-card path, on a machine with 2 or more cards (the full run on
+    one card prints a line saying why it did not run; naming the phase
+    there fails): one rank per card over NCCL, W = 4 ranks (2 on 2 or 3
+    cards).  ``cli.train_main`` at the train entry's shape at 1, 2 and W
+    ranks, 2 and 6 steps each (seconds per step from the difference of
+    the walls, all-reduce bytes, calls and CUDA-event time per step, peak
+    memory per rank), the first W-rank run started through torchrun's
+    variables and followed by one ``make_sharded_train_step`` step: ranks
+    bitwise equal, the 2-step runs within the multi-GPU limit of the
+    single process on card 0, both planted faults at W ranks beyond it,
+    K1 and K2 in every rank.  The flagship ``api.downscale`` at W ranks:
+    tile-parallel (within the streaming bf16 limits of one card), 2
+    members (data 2 x ensemble 2 at W = 4) and 4 members (ensemble W),
+    each member exactly its one-member run; each rank's wall and host
+    gate share beside one card's;
+13. A13 path: one train step at the training path's shape from one saved
     state and one set of draws under each ``TrainConfig.remat`` mode
     (False twice, True, "save_scans" and "d_only" with ``remat_gp``,
     "d_only" without), in bf16 and in f32 (there with cuDNN's
@@ -83,7 +97,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
     field against the host twin, with both times, and ``apply_gate`` on
     the card against the CPU and the split path); ``profile_region``
     around a flagship downscale, whose trace must hold K1;
-13. one JSON line with the kernels, then the result line.
+14. one JSON line with the kernels, then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -124,6 +138,9 @@ PREPARE_SHAPE = (2, 24, 24, 24, 128)
 # (8 rows of the batch of 16 each, f32).  The tile-parallel and
 # ensemble-parallel downscale ranks run whole groups of 16: MAIN_SHAPE.
 TRAIN_RANK_SHAPE = (8, 6, 8, 8, 128)
+# ... and in each of the four ranks of train_main on the multi-card path
+# (4 rows each).
+TRAIN_RANK4_SHAPE = (4, 6, 8, 8, 128)
 GRAD_SHAPE = (2, 6, 24, 24, 128)
 RAGGED_SHAPE = (3, 5, 7, 7, 40)
 NARROW_SHAPE = (2, 3, 5, 9, 12)   # F not a multiple of 8
@@ -141,6 +158,7 @@ KS_TRAIN_MAIN, KS_TRAIN_MAIN_ARGS = (16, 6, 32, 32, 2), dict(patch_size=3,
                                                             num_points=100)
 # ... and in each of its two ranks on the multi-GPU path.
 KS_TRAIN_RANK = (8, 6, 32, 32, 2)
+KS_TRAIN_RANK4 = (4, 6, 32, 32, 2)
 KS_TOL = 1e-6
 # The f32 flagship network on the card vs the CPU, output in m/s; and the
 # f32 train steps on the card vs the CPU, relative to max(1, |value|).
@@ -211,6 +229,13 @@ MULTI_TRAIN_TOL = 0.05
 # comparison with the single process must catch.
 MULTI_FAULTS = ("sum where the mean belongs", "local BatchNorm statistics")
 MULTI_TIMEOUT = 600
+# The multi-card path: one rank per card over NCCL, at W = the card count
+# up to MULTI_CARDS (W = 2 on 2 or 3 cards), the same global batch at 1, 2
+# and W ranks; runs of TRAIN_MAIN_STEPS steps each give seconds per step as
+# the difference of their walls.  The flagship downscale at W ranks: one
+# member tile-parallel (data W), 2 members (data W/2 x ensemble 2) and
+# MEMBERS members (ensemble W, MEMBERS / W each).
+MULTI_CARDS = 4
 # The A13 path.  One train step at the training path's shape from one
 # saved state and one set of draws under each remat mode, in this order:
 # (name, TrainConfig.remat, remat_gp).  The state the forwards write
@@ -342,7 +367,8 @@ def convlstm_kernel_phase() -> dict:
              (RAGGED_SHAPE, torch.float32, False),
              (NARROW_SHAPE, torch.bfloat16, True),
              (TRAIN_RANK_SHAPE, torch.float32, True),
-             (NARROW_F32_SHAPE, torch.float32, True)]
+             (NARROW_F32_SHAPE, torch.float32, True),
+             (TRAIN_RANK4_SHAPE, torch.float32, True)]
     main_err = None
     for i, (shape, dtype, hard) in enumerate(cases):
         zx, rk = convlstm_inputs(shape, dtype, seed=i)
@@ -377,7 +403,8 @@ def convlstm_kernel_phase() -> dict:
         print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj} "
               f"({blocks} blocks per step on {sms} SMs)")
     for shape in (MAIN_SHAPE, TRAIN_MAIN_SHAPE, TRAIN_RANK_SHAPE,
-                  PREPARE_SHAPE, RAGGED_SHAPE, NARROW_F32_SHAPE):
+                  PREPARE_SHAPE, RAGGED_SHAPE, NARROW_F32_SHAPE,
+                  TRAIN_RANK4_SHAPE):
         b, t, h, w, f = shape
         code = choose_tile_f32(b * h * w, f, sms)
         bm, bj, split = F32_TILES[code]
@@ -413,6 +440,8 @@ def convlstm_kernel_phase() -> dict:
                               (MAIN_SHAPE, torch.float32, "f32"),
                               (TRAIN_MAIN_SHAPE, torch.float32, "train_main"),
                               (TRAIN_RANK_SHAPE, torch.float32, "train_rank"),
+                              (TRAIN_RANK4_SHAPE, torch.float32,
+                               "train_rank4"),
                               (PREPARE_SHAPE, torch.float32, "prepare")):
         zx, rk = convlstm_inputs(shape, dtype, seed=0)
         library = library_convs(shape, rk, dtype)
@@ -566,6 +595,8 @@ def ks_kernel_phase() -> dict:
              ("patch 16, two thresholds per word", (1, 2, 40, 51, 1),
               dict(patch_size=16, num_points=30), "nans"),
              ("train_main rank of 2", KS_TRAIN_RANK, KS_TRAIN_MAIN_ARGS,
+              None),
+             ("train_main rank of 4", KS_TRAIN_RANK4, KS_TRAIN_MAIN_ARGS,
               None)]
     for i, (name, shape, kw, edit) in enumerate(cases):
         real, fake = ks_inputs(shape, seed=60 + i)
@@ -1608,21 +1639,34 @@ def prepare_path_phase() -> dict:
 
 
 def run_ranks(job: str, world: int, backend: str, out: Path,
-              fault: str = "") -> list:
-    """Start ``world`` rank processes of this script on the card (``--rank
-    job ...``), joined over a free local port with ``backend`` and with
-    ``fault`` planted; wait for them, stop them all if one fails, and
-    return their reports."""
+              fault: str = "", steps: int = MULTI_STEPS,
+              torchrun: bool = False) -> list:
+    """Start ``world`` rank processes of this script (``--rank job ...``),
+    joined over a free local port with ``backend`` and with ``fault``
+    planted, a train job taking ``steps`` steps; wait for them, stop them
+    all if one fails, and return their reports.  With ``torchrun`` each
+    rank finds its place as under ``torchrun --nproc-per-node world``, in
+    RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT, and a train
+    job passes no coordinator flags."""
+    import os
+
     from windtpu_torch.utils.hostcpu import free_tcp_port
 
     out.mkdir(parents=True, exist_ok=True)
     port = free_tcp_port()
     logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--rank", job,
-         str(r), str(world), str(port), str(out), backend, fault],
-        stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
-        for r in range(world)]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ)
+        if torchrun:
+            env.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", job,
+             str(r), str(world), str(port), str(out), backend, fault,
+             str(steps), "torchrun" if torchrun else "flags"],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT, env=env))
     deadline = time.monotonic() + MULTI_TIMEOUT
     try:
         while any(p.poll() is None for p in procs):
@@ -1642,6 +1686,11 @@ def run_ranks(job: str, world: int, backend: str, out: Path,
             tail = (out / f"rank{r}.log").read_text()[-3000:]
             fail(f"{job} rank {r} of {world} ({backend}) exited with "
                  f"{p.returncode}:\n{tail}")
+    warnings = sorted({line.strip() for r in range(world) for line in
+                       (out / f"rank{r}.log").read_text().splitlines()
+                       if "warn" in line.lower()})
+    for line in warnings:
+        print(f"  {job} ({backend}, {world} ranks) rank log: {line[:300]}")
     return [json.loads((out / f"report{r}.json").read_text())
             for r in range(world)]
 
@@ -1673,12 +1722,111 @@ def plant_fault(fault: str) -> None:
         raise ValueError(f"unknown fault {fault!r}")
 
 
+def time_all_reduces():
+    """Wrap ``torch.distributed.all_reduce``, which every all-reduce of the
+    port calls, with CUDA events around each call on a CUDA tensor: the
+    span from the stream's work before the call to the reduced result,
+    waiting for the slowest rank included.  Returns the list it fills,
+    (start, end, shape, dtype, group) per call, and the unwrapped
+    function."""
+    import torch
+    import torch.distributed as dist
+
+    spans = []
+    inner = dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        if not tensor.is_cuda:
+            return inner(tensor, *args, **kwargs)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        work = inner(tensor, *args, **kwargs)
+        end.record()
+        spans.append((start, end, tuple(tensor.shape), tensor.dtype,
+                      kwargs.get("group")))
+        return work
+
+    dist.all_reduce = timed
+    return spans, inner
+
+
+def replay_all_reduces(calls, all_reduce, device, iters: int = 10) -> float:
+    """ms of ``calls`` ((shape, dtype, group) each) all-reduced back to
+    back on zero-filled tensors after a barrier, the mean of ``iters``
+    rounds after a warm-up: what the collectives take without a slower
+    rank to wait for."""
+    import torch
+    import torch.distributed as dist
+
+    bufs = [(torch.zeros(shape, dtype=dtype, device=device), group)
+            for shape, dtype, group in calls]
+
+    def once():
+        for buf, group in bufs:
+            all_reduce(buf, group=group)
+
+    once()
+    dist.barrier(device_ids=[device.index]
+                 if dist.get_backend() == "nccl" else None)
+    return cuda_ms(once, iters, warmup=0)
+
+
+def time_train_steps(spans) -> dict:
+    """Wrap the train step that ``train.loop.train`` builds so that each
+    call records the host clock and the all-reduces timed so far
+    (``spans``) as it starts.  Returns the dict it fills: "starts",
+    (seconds, span index) per step, and "cfg", the step's GANConfig."""
+    from windtpu_torch.train import loop
+
+    record = {"starts": [], "cfg": None}
+    make = loop.make_train_step
+
+    def make_timed(cfg, *args, **kwargs):
+        step = make(cfg, *args, **kwargs)
+        record["cfg"] = cfg
+
+        def timed(*a, **k):
+            record["starts"].append((time.perf_counter(), len(spans)))
+            return step(*a, **k)
+        return timed
+
+    loop.make_train_step = make_timed
+    return record
+
+
+def time_host_gate():
+    """Time the host gate's energy prediction (``predict_log_energy_np``,
+    run by ``api.predict`` on every rank) by wrapping it; returns a list
+    whose one entry sums its seconds, and a function that unwraps it."""
+    from windtpu_torch.models import texture_gate
+
+    inner = texture_gate.predict_log_energy_np
+    spent = [0.0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    texture_gate.predict_log_energy_np = timed
+    return spent, lambda: setattr(texture_gate, "predict_log_energy_np",
+                                  inner)
+
+
 def rank_main(job: str, rank: int, world: int, port: str, out: Path,
-              backend: str, fault: str = "") -> int:
-    """One rank of the multi-GPU phase: ``train`` runs ``cli.train_main``
-    with the coordinator flags (with ``fault`` planted first, if one is
-    named), ``downscale`` runs the flagship ``api.downscale`` on a mesh;
-    both write ``report<rank>.json`` and their results into ``out``."""
+              backend: str, fault: str = "", steps: int = MULTI_STEPS,
+              launch: str = "flags") -> int:
+    """One rank of the multi-GPU and multi-card phases: ``train`` runs
+    ``cli.train_main`` for ``steps`` steps with the coordinator flags, or
+    under torchrun's variables (``launch`` "torchrun"), with ``fault``
+    planted first if one is named; ``train_sharded`` then takes one step
+    of ``make_sharded_train_step`` (``pmean_step=True``) from its state;
+    ``downscale`` runs the flagship ``api.downscale`` on a mesh, one
+    member and an ensemble of 2, ``downscale_cards`` also one of MEMBERS.
+    Gloo ranks share ``cuda:0``; NCCL ranks take a card each.  Each writes
+    ``report<rank>.json`` and its results into ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -1689,38 +1837,97 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
     report = {"rank": rank}
     if fault:
         plant_fault(fault)
-    if job == "train":
+    device = "cuda:0" if backend == "gloo" else None
+    spans, inner_all_reduce = time_all_reduces()
+    if job in ("train", "train_sharded"):
         from windtpu_torch import cli
         from windtpu_torch.weights import export_train_state
 
+        steps_run = time_train_steps(spans)
+        flags = ([] if launch == "torchrun" else [
+            "--coordinator-address", f"localhost:{port}", "--num-processes",
+            str(world), "--process-id", str(rank)])
+        if device:
+            flags += ["--device", device]
         t0 = time.perf_counter()
         state = cli.train_main(TRAIN_ENTRY_ARGV + [
-            "--steps", str(MULTI_STEPS), "--checkpoint-dir",
-            str(out / f"ck{rank}"), "--coordinator-address",
-            f"localhost:{port}", "--num-processes", str(world),
-            "--process-id", str(rank), "--backend", backend])
+            "--steps", str(steps), "--checkpoint-dir",
+            str(out / f"ck{rank}"), "--backend", backend] + flags)
         torch.cuda.synchronize()
+        end = time.perf_counter()
+        ms = [a.elapsed_time(b) for a, b, *_ in spans]
+        starts = steps_run["starts"]
+        bounds = [i for _, i in starts] + [len(spans)]
+        replayed = replay_all_reduces(
+            [call[2:] for call in spans[bounds[-2]:]], inner_all_reduce,
+            state.device)
         report.update(
-            seconds=time.perf_counter() - t0, device=str(state.device),
-            backend=dist.get_backend(), k1=convlstm_seq.launches,
-            k2=spatial_ks.launches,
+            seconds=end - t0, steps_seconds=end - starts[0][0],
+            device=str(state.device), backend=dist.get_backend(),
+            k1=convlstm_seq.launches, k2=spatial_ks.launches, steps=steps,
             peak_mib=torch.cuda.max_memory_allocated() / 2**20,
-            all_reduce_bytes_per_step=all_reduce.bytes / MULTI_STEPS)
+            all_reduce_bytes_per_step=all_reduce.bytes / steps,
+            all_reduce_calls=len(spans), all_reduce_ms=sum(ms),
+            step_all_reduce_calls=[b - a for a, b in zip(bounds,
+                                                          bounds[1:])],
+            step_all_reduce_ms=[sum(ms[a:b]) for a, b in zip(bounds,
+                                                              bounds[1:])],
+            replayed_all_reduce_ms=replayed)
         np.savez(out / f"state{rank}.npz", **export_train_state(state))
+        if job == "train_sharded":
+            from windtpu_torch.core.mesh import make_mesh, shard_batch
+            from windtpu_torch.parallel import make_sharded_train_step
+
+            cfg = steps_run["cfg"]
+            mesh = make_mesh({"data": world})
+            m, b = cfg.model, cfg.train.batch_size
+            rng = np.random.default_rng(5)
+            shape = (b, m.sequence_length, m.image_size, m.image_size)
+            lr, hr = shard_batch(mesh, (
+                rng.standard_normal(shape + (m.in_channels,), np.float32),
+                rng.standard_normal(shape + (m.out_channels,), np.float32)))
+            step = make_sharded_train_step(cfg, mesh)
+            state, _ = step(state, torch.from_numpy(lr).to(state.device),
+                            torch.from_numpy(hr).to(state.device),
+                            torch.Generator(state.device).manual_seed(11))
+            torch.cuda.synchronize()
+            np.savez(out / f"sharded{rank}.npz",
+                     **export_train_state(state))
     else:
         from windtpu_torch import api
         from windtpu_torch.parallel.distributed import initialize_distributed
 
         initialize_distributed(f"localhost:{port}", world, rank,
-                               backend=backend)
+                               backend=backend, device=device)
         era5, raster = era5_and_dem(21, 42, 24, seed=0)
         network = api.get_network()
         api.downscale(era5, raster, network=network)  # warm-up
-        for name, members in (("tile", 1), ("ensemble", 2)):
+        gate, _ = time_host_gate()
+        runs = [("tile", 1), ("ensemble", 2)]
+        if job == "downscale_cards":
+            runs = [("tile", 1), ("ensemble2", 2),
+                    (f"ensemble{MEMBERS}", MEMBERS)]
+            # Each mesh's first call also starts its NCCL communicators.
+            for _, members in runs[1:]:
+                api.downscale(era5, raster, network=network,
+                              ensemble_members=members)
+            # Members whose patch groups split over a data axis, one at a
+            # time on the same mesh: the same sums in the same order.
+            for _, members in runs[1:]:
+                mesh = api.inference_mesh(members)
+                if mesh.axis_size("data") == 1:
+                    continue
+                for s in api.member_seeds(0, members):
+                    res = api.downscale(era5, raster, network=network,
+                                        seed=s, mesh=mesh)
+                    np.savez(out / f"member{s}_{rank}.npz",
+                             u10=res["u10"].values, v10=res["v10"].values)
+        for name, members in runs:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             convlstm_seq.launches = all_reduce.bytes = 0
+            gate[0] = 0.0
             t0 = time.perf_counter()
             res = api.downscale(era5, raster, network=network, seed=0,
                                 ensemble_members=members)
@@ -1728,7 +1935,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
             report[name] = dict(
                 seconds=time.perf_counter() - t0, k1=convlstm_seq.launches,
                 peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
-                all_reduce_bytes=all_reduce.bytes,
+                all_reduce_bytes=all_reduce.bytes, gate_seconds=gate[0],
                 info=api.last_run_info(), device=str(network.device))
             np.savez(out / f"{name}{rank}.npz", u10=res["u10"].values,
                      v10=res["v10"].values)
@@ -1775,9 +1982,9 @@ def multi_gpu_phase() -> dict:
 
     work = ROOT / "build" / "chip_smoke_multi_gpu"
     shutil.rmtree(work, ignore_errors=True)
-    print("two ranks share the one card under gloo (NCCL refuses two ranks "
-          "on one card): these runs test correctness, not speed; no "
-          "multi-card number exists")
+    print("two ranks share card 0 under gloo (NCCL refuses two ranks on "
+          "one card): these runs test correctness, not speed; the "
+          "multi-card path runs NCCL across cards")
 
     def single(steps: int, name: str) -> dict:
         return export_train_state(cli.train_main(TRAIN_ENTRY_ARGV + [
@@ -1882,6 +2089,216 @@ def multi_gpu_phase() -> dict:
                     compare(f"bf16 downscale {var}, member {m} over the "
                             f"ensemble axis vs its one-member run", g, w,
                             MEMBER_TOL)
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def multi_card_phase() -> dict:
+    """train_main and the flagship downscale over NCCL, one rank per card,
+    against single-process runs on card 0; fails on a machine with one
+    card (the full run skips the phase there with a line saying so)."""
+    import torch
+
+    from windtpu_torch import api, cli
+    from windtpu_torch.weights import export_train_state
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        fail(f"the multi-card path needs 2 or more cards; this machine has "
+             f"{cards}")
+    world = MULTI_CARDS if cards >= MULTI_CARDS else 2
+    work = ROOT / "build" / "chip_smoke_multi_card"
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"{world} ranks over NCCL, one per card, on {cards} cards: "
+          f"{[torch.cuda.get_device_name(i) for i in range(cards)]}")
+
+    def single(steps: int, name: str) -> dict:
+        return export_train_state(cli.train_main(TRAIN_ENTRY_ARGV + [
+            "--steps", str(steps), "--checkpoint-dir", str(work / name)]))
+
+    short, long = TRAIN_MAIN_STEPS
+    start, plain = single(0, "start"), single(short, "plain")
+    counts = {"convlstm_seq": 0, "spatial_ks": 0}
+    seq, problems = 6, []
+    # (name, ranks, steps, fault); the first W-rank run starts as torchrun
+    # starts ranks and also takes a make_sharded_train_step step.
+    runs = [(f"nccl{w}x{n}", w, n, "") for w in sorted({1, 2, world})
+            for n in (short, long)]
+    runs += [(f"fault{i}", world, short, f)
+             for i, f in enumerate(MULTI_FAULTS)]
+    timing = {}
+    for name, w, steps, fault in runs:
+        main = (w, steps, fault) == (world, short, "")
+        reports = run_ranks("train_sharded" if main else "train", w, "nccl",
+                            work / name, fault, steps=steps, torchrun=main)
+        states = [dict(np.load(work / name / f"state{r}.npz"))
+                  for r in range(w)]
+        if fault:
+            worst = state_error(states[0], plain, start)
+            caught = worst["all"] > MULTI_TRAIN_TOL
+            print(f"train_main nccl at {w} ranks with a planted fault, "
+                  f"{fault}: vs one process {describe(worst)} (tol "
+                  f"{MULTI_TRAIN_TOL:.0e}): "
+                  f"{'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                problems.append(f"the limit misses the fault {fault} at "
+                                f"{w} NCCL ranks")
+            continue
+        timing[w, steps] = reports
+        for rep in reports:
+            print(f"train_main nccl rank {rep['rank']} of {w} "
+                  f"({'torchrun variables' if main else 'coordinator flags'}"
+                  f") on {rep['device']} ({rep['backend']}), batch 16 / {w} "
+                  f"per rank, {steps} steps: {rep['seconds']:.3f} s (process "
+                  f"set-up included), peak memory allocated "
+                  f"{rep['peak_mib']:.0f} MiB, convlstm_seq {rep['k1']}, "
+                  f"spatial_ks {rep['k2']}, all-reduce "
+                  f"{rep['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
+                  f"step in {rep['all_reduce_calls']} calls, "
+                  f"{rep['all_reduce_ms']:.3f} ms in them (CUDA events)")
+            if (rep["device"] != f"cuda:{rep['rank']}"
+                    or rep["backend"] != "nccl"):
+                problems.append(f"rank {rep['rank']} of {w} ran on "
+                                f"{rep['device']} ({rep['backend']})")
+            if rep["k1"] != 5 * seq * steps or rep["k2"] != steps:
+                problems.append(
+                    f"train_main nccl rank {rep['rank']} of {w}: "
+                    f"convlstm_seq {rep['k1']} (expected {5 * seq * steps}"
+                    f"), spatial_ks {rep['k2']} (expected {steps})")
+            counts["convlstm_seq"] += rep["k1"]
+            counts["spatial_ks"] += rep["k2"]
+        finals = [states] + ([[dict(np.load(work / name / f"sharded{r}.npz"))
+                               for r in range(w)]] if main else [])
+        for what, ranks in zip(("train_main", "make_sharded_train_step"),
+                               finals):
+            for r in range(1, w):
+                differ = [k for k in ranks[0]
+                          if not np.array_equal(ranks[r][k], ranks[0][k])]
+                print(f"{what} nccl at {w} ranks, {steps} steps: rank {r} "
+                      f"vs rank 0: {len(differ)} of {len(ranks[0])} tensors "
+                      f"differ (tol 0)")
+                if differ:
+                    problems.append(f"{what} nccl at {w} ranks: the ranks' "
+                                    f"states differ at {differ[:3]}")
+        if steps == short:
+            worst = state_error(states[0], plain, start)
+            ok = worst["all"] <= MULTI_TRAIN_TOL
+            print(f"train_main nccl at {w} rank(s) vs one process, relative "
+                  f"to each part's movement: {describe(worst)} (tol "
+                  f"{MULTI_TRAIN_TOL:.0e}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                problems.append(f"train_main nccl at {w} rank(s) disagrees "
+                                f"with the single process")
+    if problems:
+        fail("; ".join(problems))
+    smi = device_line()
+    for w in sorted({1, 2, world}):
+        a, b = timing[w, short], timing[w, long]
+
+        def slowest(key, reports):
+            return max(r[key] for r in reports)
+
+        per_step = ((slowest("steps_seconds", b) - slowest("steps_seconds", a))
+                    / (long - short))
+        whole = (slowest("seconds", b) - slowest("seconds", a)) / (long - short)
+        # Steps 2 on of the longer run: step 1 also starts cuDNN's and
+        # NCCL's plans.
+        nccl_ms = max(float(np.mean(r["step_all_reduce_ms"][1:])) for r in b)
+        calls = b[0]["step_all_reduce_calls"][1:]
+        print(f"train_main at {w} NCCL rank(s), global batch 16: "
+              f"{per_step:.4f} s per step (the difference of the {long}- and "
+              f"{short}-step walls from the first step on, over "
+              f"{long - short} steps; from the process's start "
+              f"{whole:.4f}), all-reduce "
+              f"{b[0]['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
+              f"step per rank in {calls} calls per step (steps 2 to "
+              f"{long}), {nccl_ms:.3f} ms per step in them (the slowest "
+              f"rank's mean over steps 2 to {long}; per step "
+              f"{[round(x, 3) for x in max(b, key=lambda r: r['all_reduce_ms'])['step_all_reduce_ms']]}"
+              f"), {slowest('replayed_all_reduce_ms', b):.3f} ms for the "
+              f"last step's all-reduces replayed back to back (slowest "
+              f"rank), peak memory per rank {slowest('peak_mib', a):.0f} "
+              f"MiB ({smi})")
+
+    reports = run_ranks("downscale_cards", world, "nccl",
+                        work / "downscale")
+    era5, raster = era5_and_dem(21, 42, 24, seed=0)
+    network = api.get_network()
+    api.downscale(era5, raster, network=network, seed=0)  # warm-up
+    gate, unwrap = time_host_gate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tile = api.downscale(era5, raster, network=network, seed=0)
+    torch.cuda.synchronize()
+    single_s, single_gate = time.perf_counter() - t0, gate[0]
+    unwrap()
+    one = {}
+    for m in (2, MEMBERS):
+        for s in api.member_seeds(0, m):
+            if s not in one:
+                one[s] = api.downscale(era5, raster, network=network, seed=s)
+    print(f"downscale on one card (card 0): {single_s:.3f} s, host gate "
+          f"energy prediction {single_gate:.3f} s "
+          f"({100 * single_gate / single_s:.1f}%)")
+    for name, members in (("tile", 1), ("ensemble2", 2),
+                          (f"ensemble{MEMBERS}", MEMBERS)):
+        axes = api.inference_mesh_axes(members, world)
+        mode = (("ensemble" if members > 1 else "tile")
+                + ("+tile" if members > 1 and axes.get("data", 1) > 1
+                   else ""))
+        k1 = 24 * -(-4 // axes.get("data", 1))   # 4 groups of 16 patches
+        for rep in reports:
+            r = rep[name]
+            print(f"downscale {name} rank {rep['rank']} of {world} on "
+                  f"{r['device']} (nccl): {r['seconds']:.3f} s (one card "
+                  f"{single_s:.3f} s), host gate {r['gate_seconds']:.3f} s "
+                  f"({100 * r['gate_seconds'] / r['seconds']:.1f}%), peak "
+                  f"device memory above the weights {r['peak_mib']:.1f} "
+                  f"MiB, convlstm_seq {r['k1']}, all-reduce "
+                  f"{r['all_reduce_bytes'] / 2**20:.1f} MiB, {r['info']}")
+            if (r["info"]["mode"] != mode or r["info"]["mesh_axes"] != axes
+                    or r["info"]["ensemble_sharded"] != (members > 1)
+                    or r["device"] != f"cuda:{rep['rank']}"
+                    or r["k1"] != k1):
+                fail(f"downscale {name} rank {rep['rank']} ran {r['info']} "
+                     f"on {r['device']} with {r['k1']} convlstm_seq "
+                     f"launches (expected {mode} on {axes}, {k1})")
+            counts["convlstm_seq"] += r["k1"]
+        got = [dict(np.load(work / "downscale" / f"{name}{r}.npz"))
+               for r in range(world)]
+        for var in ("u10", "v10"):
+            for r in range(1, world):
+                if not np.array_equal(got[r][var], got[0][var],
+                                      equal_nan=True):
+                    fail(f"downscale {name}: rank {r}'s {var} differs from "
+                         f"rank 0's")
+            if members == 1:
+                w = tile[var].values
+                compare(f"bf16 downscale {var}, {world} ranks tile-parallel "
+                        f"vs one card", got[0][var], w,
+                        STREAM_BF16_REL * float(np.nanmax(np.abs(w))),
+                        mean_tol=STREAM_BF16_MEAN_TOL)
+                continue
+            for m, s in enumerate(api.member_seeds(0, members)):
+                w = one[s][var].values
+                if axes.get("data", 1) == 1:
+                    compare(f"bf16 downscale {var}, member {m} of {members} "
+                            f"on {axes} vs its one-member run on one card",
+                            got[0][var][m], w, MEMBER_TOL)
+                    continue
+                # Split over the data axis, a member sums its statistics
+                # and canvas over ranks, as tile-parallel does: exactly its
+                # one-member run tile-parallel on that axis, and within the
+                # streaming limits of one card.
+                tiled = np.load(work / "downscale" / f"member{s}_0.npz")[var]
+                compare(f"bf16 downscale {var}, member {m} of {members} on "
+                        f"{axes} vs its one-member run over the same data "
+                        f"axis", got[0][var][m], tiled, MEMBER_TOL)
+                compare(f"bf16 downscale {var}, member {m} of {members} on "
+                        f"{axes} vs its one-member run on one card",
+                        got[0][var][m], w,
+                        STREAM_BF16_REL * float(np.nanmax(np.abs(w))),
+                        mean_tol=STREAM_BF16_MEAN_TOL)
     shutil.rmtree(work, ignore_errors=True)
     return counts
 
@@ -2162,6 +2579,7 @@ PHASES = {
     "train entry": train_entry_phase,
     "prepare path": prepare_path_phase,
     "multi-GPU path": multi_gpu_phase,
+    "multi-card path": multi_card_phase,
     "A13 path": a13_path_phase,
 }
 
@@ -2179,10 +2597,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--rank"]:          # a rank of the multi-GPU phase
-        job, rank, world, port, out, backend, fault = sys.argv[2:9]
+    if sys.argv[1:2] == ["--rank"]:   # a rank of a multi-process phase
+        job, rank, world, port, out, backend, fault, steps, launch = \
+            sys.argv[2:11]
         return rank_main(job, int(rank), int(world), port, Path(out),
-                         backend, fault)
+                         backend, fault, int(steps), launch)
 
     chosen = sys.argv[1:]
     unknown = sorted(set(chosen) - set(PHASES))
@@ -2199,6 +2618,11 @@ def main() -> int:
     for name, fn in PHASES.items():
         if not chosen or name in chosen:
             phase(name)
+            if (fn is multi_card_phase and not chosen
+                    and torch.cuda.device_count() < 2):
+                print(f"not run: the multi-card path needs 2 or more cards; "
+                      f"this machine has {torch.cuda.device_count()}")
+                continue
             results[name] = fn()
     if chosen:
         print(f"ran only {chosen}: no result line")
@@ -2215,12 +2639,15 @@ def main() -> int:
              "prepare": results["prepare path"],
              "multi_gpu": results["multi-GPU path"],
              "a13": results["A13 path"]}
+    if "multi-card path" in results:
+        paths["multi_card"] = results["multi-card path"]
     kernels = []
     for k in KERNELS:
         by_path = {path: counts.get(k["name"], 0)
                    for path, counts in paths.items()}
-        for path in ("train", "train_main", "multi_gpu", "a13"):
-            if by_path[path] == 0:
+        for path in ("train", "train_main", "multi_gpu", "a13",
+                     "multi_card"):
+            if by_path.get(path, 1) == 0:
                 fail(f"{k['name']} was not launched on the {path} path")
         kernels.append({**k, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **stats[k["name"]]})

@@ -1,6 +1,7 @@
 """The port's data-parallel training (windtpu_torch/core/mesh.py,
 parallel/, train/wgan_gp.py with a mesh) against the JAX package's, with
-two real rank processes joined by gloo on the CPU (tests/torch_ranks.py).
+two and with four real rank processes joined by gloo on the CPU
+(tests/torch_ranks.py).
 
 From the same perturbed state, batches and draws, over two steps:
 
@@ -10,15 +11,20 @@ From the same perturbed state, batches and draws, over two steps:
   tolerances of tests/test_torch_train.py;
 * the global-batch step (``make_train_step(cfg, mesh=mesh)``): the ranks
   hold identical parameters, equal to the port's single-process step on
-  the whole batch and to JAX's ``make_train_step`` under sharded ``jit``.
+  the whole batch and to JAX's ``make_train_step`` under sharded ``jit``,
+  at 2 ranks and at 4 (on 4 devices there).
 
-The rank processes start once, while the JAX side compiles here.  The mesh
+At 4 ranks also the 2-D mesh ``{"data": 2, "ensemble": 2}``: coordinates
+in JAX's device order, each axis's sub-group summing as JAX's psum over
+that axis, and no new process group on a second call.  The rank processes
+of both worlds start once, while the JAX side compiles here.  The mesh
 rules are checked against JAX's for worlds 1 to 8 without processes.
 """
 
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -46,6 +52,10 @@ torch.set_num_threads(2)
 
 WORLD = 2
 STEPS = 2
+# The train steps each world runs ("a": the shard_map step, "b": the
+# global-batch step, "c": "b" under remat="save_scans"); at 4 ranks the
+# global-batch step, each rank with one row of the batch of 4.
+NAMES = {WORLD: ["a", "b", "c"], 4: ["b"]}
 TRAIN = dict(n_critic=1)
 # The state after two steps, at the tolerance tests/test_torch_train.py
 # holds its second step to.
@@ -83,10 +93,10 @@ def _port_state(tcfg, flat):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """Start the ranks on the inputs, run the JAX steps and the port's
-    single-process step here meanwhile, and collect everything."""
-    work = tmp_path_factory.mktemp("parallel")
+def runs(tmp_path_factory):
+    """Start the ranks of both worlds on the inputs, run the JAX steps and
+    the port's single-process step here meanwhile, and collect everything,
+    by world size."""
     jcfg, tcfg = configs(**TRAIN)
     flat = perturbed_flat(tcfg, seed=1)
     key = jax.random.key(3)
@@ -105,37 +115,63 @@ def run(tmp_path_factory):
             inputs.update(_as_arrays(
                 jax_draws(jcfg, rng, None, lr[rows], hr[rows]),
                 f"a/{s}/{i}"))
-    np.savez(work / "inputs.npz", **inputs)
-    (work / "config.json").write_text(json.dumps(dict(
-        model=dict(tcfg.model.__dict__), train=dict(tcfg.train.__dict__),
-        steps=STEPS)))
-    procs = torch_ranks.launch("parallel", WORLD, work)
+    works, procs = {}, {}
+    for world, names in NAMES.items():
+        works[world] = work = tmp_path_factory.mktemp(f"parallel{world}")
+        np.savez(work / "inputs.npz", **inputs)
+        (work / "config.json").write_text(json.dumps(dict(
+            model=dict(tcfg.model.__dict__), train=dict(tcfg.train.__dict__),
+            steps=STEPS, names=names)))
+        procs[world] = torch_ranks.launch("parallel", world, work)
     try:
-        mesh = j_make_mesh({"data": WORLD}, devices=jax.devices()[:WORLD])
-        rep, rows = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
-        want = {"a": [], "b": []}
+        want = {"a": [], **{f"b{world}": [] for world in NAMES}}
         ja = _jax_state(jcfg, flat)
-        jb = jax.device_put(_jax_state(jcfg, flat), rep)
-        step_a, step_b = j_sharded_step(jcfg, mesh), j_make_train_step(jcfg)
+        step_a = j_sharded_step(jcfg, _jax_mesh(WORLD))
+        step_b = j_make_train_step(jcfg)
+        jb, shardings = {}, {}
+        for world in NAMES:
+            mesh = _jax_mesh(world)
+            shardings[world] = (NamedSharding(mesh, P()),
+                                NamedSharding(mesh, P("data")))
+            jb[world] = jax.device_put(_jax_state(jcfg, flat),
+                                       shardings[world][0])
         single = _port_state(tcfg, flat)
         tstep = make_train_step(tcfg)
         single_metrics = []
         for s, (lr, hr) in enumerate(batches):
             ja, ma = step_a(ja, lr, hr, key)
-            jb, mb = step_b(jb, jax.device_put(lr, rows),
-                            jax.device_put(hr, rows),
-                            jax.device_put(key, rep))
             want["a"].append((jax.device_get(ja), jax.device_get(ma)))
-            want["b"].append((jax.device_get(jb), jax.device_get(mb)))
+            for world, (rep, rows) in shardings.items():
+                jb[world], mb = step_b(jb[world], jax.device_put(lr, rows),
+                                       jax.device_put(hr, rows),
+                                       jax.device_put(key, rep))
+                want[f"b{world}"].append((jax.device_get(jb[world]),
+                                          jax.device_get(mb)))
             single, m = tstep(single, lr, hr, draws=global_draws[s])
             single_metrics.append(m)
     finally:
-        torch_ranks.finish(procs)
-    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(WORLD)]
-    checks = [json.loads((work / f"rank{r}.json").read_text())
-              for r in range(WORLD)]
-    return dict(tcfg=tcfg, want=want, ranks=ranks, checks=checks,
-                single=single, single_metrics=single_metrics)
+        for world in procs:
+            torch_ranks.finish(procs[world])
+    out = {}
+    for world, work in works.items():
+        out[world] = dict(
+            world=world, tcfg=tcfg, single=single,
+            single_metrics=single_metrics,
+            want={"a": want["a"], "b": want[f"b{world}"]},
+            ranks=[dict(np.load(work / f"rank{r}.npz"))
+                   for r in range(world)],
+            checks=[json.loads((work / f"rank{r}.json").read_text())
+                    for r in range(world)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def run(runs):
+    return runs[WORLD]
+
+
+def _jax_mesh(world):
+    return j_make_mesh({"data": world}, devices=jax.devices()[:world])
 
 
 def _rank_state(run, rank, name):
@@ -152,12 +188,15 @@ def _rank_metrics(run, rank, name, step):
 
 
 def _assert_ranks_identical(run, name):
-    r0, r1 = run["ranks"]
+    r0 = run["ranks"][0]
     keys = [k for k in r0 if k.split("/")[0] in (name, f"{name}_metrics")]
-    assert keys and sorted(keys) == sorted(
-        k for k in r1 if k.split("/")[0] in (name, f"{name}_metrics"))
-    for k in keys:
-        np.testing.assert_allclose(r1[k], r0[k], rtol=0, atol=0, err_msg=k)
+    assert keys
+    for r in run["ranks"][1:]:
+        assert sorted(keys) == sorted(
+            k for k in r if k.split("/")[0] in (name, f"{name}_metrics"))
+        for k in keys:
+            np.testing.assert_allclose(r[k], r0[k], rtol=0, atol=0,
+                                       err_msg=k)
 
 
 def test_shard_map_step_matches_jax(run):
@@ -170,7 +209,9 @@ def test_shard_map_step_matches_jax(run):
                             run["want"]["a"][-1][0], STATE_ATOL)
 
 
-def test_global_batch_step_ranks_equal_the_single_process_step(run):
+@pytest.mark.parametrize("world", sorted(NAMES))
+def test_global_batch_step_ranks_equal_the_single_process_step(runs, world):
+    run = runs[world]
     _assert_ranks_identical(run, "b")
     got = export_train_state(_rank_state(run, 0, "b"))
     want = export_train_state(run["single"])
@@ -208,7 +249,9 @@ def test_global_batch_step_under_save_scans_equals_the_plain_step(run):
                                        err_msg=k)
 
 
-def test_global_batch_step_matches_jax_sharded_jit(run):
+@pytest.mark.parametrize("world", sorted(NAMES))
+def test_global_batch_step_matches_jax_sharded_jit(runs, world):
+    run = runs[world]
     for s in range(STEPS):
         assert_metrics_close(_rank_metrics(run, 0, "b", s),
                              run["want"]["b"][s][1])
@@ -235,7 +278,9 @@ def test_mesh_and_collectives_at_two_ranks(run):
         assert checks["psum_grad"] == 3.0
 
 
-def test_extreme_rmse_takes_the_global_denominator(run):
+@pytest.mark.parametrize("world", sorted(NAMES))
+def test_extreme_rmse_takes_the_global_denominator(runs, world):
+    run = runs[world]
     rng = np.random.default_rng(0)
     real = torch.from_numpy(rng.standard_normal((4, 2, 5, 5, 2),
                                                 dtype=np.float32))
@@ -246,7 +291,9 @@ def test_extreme_rmse_takes_the_global_denominator(run):
                                rtol=1e-6)
 
 
-def test_batch_norm_takes_the_global_batch_statistics(run):
+@pytest.mark.parametrize("world", sorted(NAMES))
+def test_batch_norm_takes_the_global_batch_statistics(runs, world):
+    run = runs[world]
     rng = np.random.default_rng(0)
     rng.standard_normal((4, 2, 5, 5, 2), dtype=np.float32)
     rng.standard_normal((4, 2, 5, 5, 2), dtype=np.float32)
@@ -269,6 +316,64 @@ def test_batch_norm_takes_the_global_batch_statistics(run):
         np.testing.assert_allclose(r["bn_mean"], bn.bn.mean.numpy(),
                                    rtol=1e-5)
         np.testing.assert_allclose(r["bn_var"], bn.bn.var.numpy(), rtol=1e-5)
+
+
+def test_two_d_mesh_at_four_ranks_matches_jax(runs):
+    """make_mesh({"data": 2, "ensemble": 2}) at 4 ranks: rank r sits where
+    JAX's mesh of the same axes over 4 devices puts device r, each axis's
+    sub-group sums what JAX's psum over that axis sums (pmean and
+    all_reduce alike, psum's gradient too), a second call makes no process
+    group, and the 1-D mesh rules hold as at two ranks."""
+    from jax import shard_map
+
+    run = runs[4]
+    jm = j_make_mesh({"data": 2, "ensemble": 2}, devices=jax.devices()[:4])
+    where = {d.id: idx for idx, d in np.ndenumerate(jm.devices)}
+    xs = np.stack([[r + 1.0, 10.0 * (r + 1) ** 2] for r in range(4)])
+    grid = np.zeros(jm.devices.shape + (2,), np.float32)
+    for r in range(4):
+        grid[where[jax.devices()[r].id]] = xs[r]
+    spec = P("data", "ensemble")
+    for axis in ("data", "ensemble"):
+        summed = np.asarray(shard_map(
+            lambda a, axis=axis: jax.lax.psum(a, axis), mesh=jm,
+            in_specs=spec, out_specs=spec)(jnp.asarray(grid)))
+        for rank, (checks, out) in enumerate(zip(run["checks"],
+                                                 run["ranks"])):
+            mesh = checks["two_d_mesh"]
+            at = where[jax.devices()[rank].id]
+            assert tuple(mesh["coords"]) == at
+            want = summed[at]
+            np.testing.assert_array_equal(out[f"two_d/psum/{axis}"], want)
+            np.testing.assert_array_equal(
+                out[f"two_d/all_reduce/{axis}"], want)
+            np.testing.assert_allclose(out[f"two_d/pmean/{axis}"],
+                                       want / 2, rtol=1e-7)
+            # d/dv of sum over the group of (r + 1) * psum(v).
+            peers = [r for r in range(4) if
+                     [c for a, c in zip(("data", "ensemble"),
+                                        where[jax.devices()[r].id])
+                      if a != axis] ==
+                     [c for a, c in zip(("data", "ensemble"), at)
+                      if a != axis]]
+            assert mesh["psum_grad"][axis] == [float(sum(
+                r + 1 for r in peers))] * 2
+    for rank, checks in enumerate(run["checks"]):
+        mesh = checks["two_d_mesh"]
+        # Two groups per axis, every rank calling new_group for each.
+        assert mesh["groups_made"] == 4 and mesh["groups_made_again"] == 0
+        assert mesh["reused"] is True
+        assert mesh["group_sizes"] == {"data": 2, "ensemble": 2}
+        meshes = checks["meshes"]
+        assert meshes["None"] == [{"data": 4}, [rank]]
+        assert meshes[str({"data": 1, "ensemble": 4})] == [
+            {"data": 1, "ensemble": 4}, [0, rank]]
+        assert checks["global_data_mesh"] == {"data": 1, "ensemble": 4}
+        assert "needs 5 devices, only 4" in checks["too_big"]
+        assert checks["replicated"] == [0.0] * 3
+        assert ("disagree on the seed: [7, 8, 9, 10]"
+                in checks["seed_disagreement"])
+        assert checks["psum_grad"] == 10.0
 
 
 # ---- the mesh rules, without processes --------------------------------------
@@ -336,6 +441,27 @@ def test_initialize_distributed_backend_is_explicit(monkeypatch, device,
     assert (kwargs["world_size"], kwargs["rank"]) == (8, 6)
     if device != "cpu":
         assert calls[0] == torch.device("cuda", 2)   # rank 6 of 4 cards
+
+
+@pytest.mark.parametrize("backend,device_ids", [("nccl", [3]),
+                                                ("gloo", None)])
+def test_loop_barrier_names_the_card_under_nccl(monkeypatch, backend,
+                                                device_ids):
+    """The barrier before a multi-rank run's first step names this rank's
+    card under NCCL (torch otherwise takes the current CUDA context and
+    warns) and none under gloo."""
+    from windtpu_torch.train import loop
+
+    calls = []
+    monkeypatch.setattr(loop, "world", lambda: (0, 2))
+    monkeypatch.setattr(loop, "agree", lambda value, what: value)
+    monkeypatch.setattr(loop, "replicate_to_mesh", lambda mesh, tree: tree)
+    monkeypatch.setattr(loop.dist, "get_backend", lambda: backend)
+    monkeypatch.setattr(loop.dist, "barrier", lambda **kw: calls.append(kw))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    _, tcfg = configs(**TRAIN)
+    loop.train(tcfg, iter(()), 0, device="cpu", mesh=tmesh.make_mesh())
+    assert calls == [{"device_ids": device_ids}]
 
 
 def test_initialize_distributed_raises_without_a_card_or_flags(monkeypatch):

@@ -10,16 +10,24 @@ writes a scenario's inputs to ``workdir/inputs.npz`` first and reads
 ``workdir/rank<r>.npz`` (and ``rank<r>.json``) back.  The rank processes
 import torch and the port only, never JAX; importing this module imports
 neither.
+
+A run of ranks has TIMEOUT seconds from its launch: ``finish`` kills every
+rank at that deadline, or as soon as one rank fails, and each rank ends
+itself at the same limit (dumping its stacks), so a hung rendezvous or a
+rank left waiting on a dead peer fails the test instead of holding it.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-TIMEOUT = 600
+# About ten times the slowest run of ranks seen (the 4-rank train step
+# scenario, beside a JAX compile in the test process).
+TIMEOUT = 300
 
 
 def launch(scenario: str, world: int, workdir):
@@ -28,27 +36,40 @@ def launch(scenario: str, world: int, workdir):
     port = free_tcp_port()
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
            "CUDA_VISIBLE_DEVICES": ""}
-    return [subprocess.Popen(
-        [sys.executable, __file__, scenario, str(rank), str(world),
-         str(port), str(workdir)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=REPO, env=env) for rank in range(world)]
+    deadline = time.monotonic() + TIMEOUT
+    procs = []
+    for rank in range(world):
+        log = open(Path(workdir) / f"rank{rank}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, __file__, scenario, str(rank), str(world),
+             str(port), str(workdir)],
+            stdout=log, stderr=subprocess.STDOUT, text=True, cwd=REPO,
+            env=env)
+        log.close()
+        p.log, p.deadline = Path(log.name), deadline
+        procs.append(p)
+    return procs
 
 
 def finish(procs):
-    """Each rank's output; raises with it where a rank failed."""
-    outs = []
+    """Each rank's output; raises with it where a rank failed or the run
+    outlived its deadline.  Every rank is stopped on return."""
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > procs[0].deadline
+                    or any(p.returncode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+            p.wait()
+    outs = [p.log.read_text() for p in procs]
     for rank, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"rank {rank} failed:\n{out[-4000:]}")
+            raise AssertionError(f"rank {rank} of {len(procs)} failed "
+                                 f"(exit {p.returncode}):\n{out[-4000:]}")
     return outs
 
 
@@ -100,10 +121,11 @@ def _draws(inputs, prefix):
 
 
 def parallel(rank, world, workdir):
-    """The two data-parallel train steps from the same state (the
-    global-batch one also with ``remat="save_scans"``, whose recompute
-    all-reduces BatchNorm's sums again in the backward), and the mesh and
-    collective rules, at ``world`` ranks."""
+    """The data-parallel train steps named in the config from the same
+    state ("a": the shard_map step, "b": the global-batch step, "c": "b"
+    with ``remat="save_scans"``, whose recompute all-reduces BatchNorm's
+    sums again in the backward), and the mesh and collective rules, at
+    ``world`` ranks; at 4 ranks also the 2-D mesh (``two_d_mesh``)."""
     import dataclasses
 
     import numpy as np
@@ -131,10 +153,11 @@ def parallel(rank, world, workdir):
     out, checks = {}, {}
     remat = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, remat="save_scans", remat_gp=True))
-    steps = {"a": make_sharded_train_step(cfg, mesh),
-             "b": make_train_step(cfg, mesh=mesh),
-             "c": make_train_step(remat, mesh=mesh)}
-    for name, step in steps.items():
+    makers = {"a": lambda: make_sharded_train_step(cfg, mesh),
+              "b": lambda: make_train_step(cfg, mesh=mesh),
+              "c": lambda: make_train_step(remat, mesh=mesh)}
+    for name in kw["names"]:
+        step = makers[name]()
         state = load_train_state(create_train_state(cfg, device="cpu"), flat)
         for s in range(kw["steps"]):
             lr, hr = shard_batch(mesh, (inputs[f"lr/{s}"], inputs[f"hr/{s}"]))
@@ -193,13 +216,58 @@ def parallel(rank, world, workdir):
     (y * torch.arange(1.0, 4.0)).sum().backward()
     out["bn_y"], out["bn_grad"] = y.detach().numpy(), xb.grad.numpy()
     out["bn_mean"], out["bn_var"] = bn.bn.mean.numpy(), bn.bn.var.numpy()
+    if world == 4:
+        checks["two_d_mesh"] = two_d_mesh(rank, out)
     np.savez(workdir / f"rank{rank}.npz", **out)
     (workdir / f"rank{rank}.json").write_text(json.dumps(checks))
 
 
+def two_d_mesh(rank, out):
+    """``make_mesh({"data": 2, "ensemble": 2})`` at 4 ranks: this rank's
+    coordinates, the process groups made by the first and by a second
+    call, and ``psum`` (with its gradient), ``pmean`` and ``all_reduce``
+    over each axis's sub-group of a tensor that names the rank (into
+    ``out``)."""
+    import torch
+    import torch.distributed as dist
+
+    from windtpu_torch.core.mesh import all_reduce, make_mesh, pmean, psum
+
+    axes = {"data": 2, "ensemble": 2}
+    made = []
+    new_group = dist.new_group
+    dist.new_group = lambda *a, **k: made.append(a) or new_group(*a, **k)
+    try:
+        mesh = make_mesh(axes)
+        first = len(made)
+        again = make_mesh(dict(axes))
+    finally:
+        dist.new_group = new_group
+    x = torch.tensor([rank + 1.0, 10.0 * (rank + 1) ** 2])
+    grads = {}
+    for axis in axes:
+        group = mesh.group(axis)
+        v = x.clone().requires_grad_()
+        y = psum(v, group)
+        (y * (rank + 1)).sum().backward()
+        out[f"two_d/psum/{axis}"] = y.detach().numpy()
+        out[f"two_d/pmean/{axis}"] = pmean([x], group)[0].numpy()
+        out[f"two_d/all_reduce/{axis}"] = all_reduce(x.clone(),
+                                                     group).numpy()
+        grads[axis] = v.grad.tolist()
+    return dict(coords=list(mesh.coords), groups_made=first,
+                groups_made_again=len(made) - first, reused=again is mesh,
+                group_sizes={a: dist.get_world_size(mesh.group(a))
+                             for a in axes},
+                psum_grad=grads)
+
+
 def tile(rank, world, workdir):
-    """Tile-parallel and ensemble x tile inference with stand-in networks,
-    and api.predict on a mesh, at ``world`` ranks."""
+    """Tile-parallel and ensemble x tile inference with stand-in networks
+    (each case's mesh: "data" over every rank, "ensemble" over every rank,
+    or "2x2", data 2 x ensemble 2; through the predictor or through
+    ``downscale_field``), counting the patch rows this rank's network
+    ran, and api.predict on a mesh, at ``world`` ranks."""
     import dataclasses
 
     import numpy as np
@@ -224,6 +292,9 @@ def tile(rank, world, workdir):
              "noise": lambda p, n: n[..., :2]}
     data = make_mesh({"data": world})
     ens = make_mesh({"data": 1, "ensemble": world})
+    meshes = {"data": data, "ensemble": ens}
+    if world == 4:
+        meshes["2x2"] = make_mesh({"data": 2, "ensemble": 2})
     out, info = {}, {}
 
     def gen(seed):
@@ -235,11 +306,21 @@ def tile(rank, world, workdir):
         plan = plan_tiling(*field.shape[1:3], field.shape[0],
                            cfg.image_size, cfg.sequence_length,
                            cfg.overlap_factor)
-        apply_fn = funcs[case["apply"]]
+        rows = []
+
+        def apply_fn(p, n, f=funcs[case["apply"]]):
+            rows.append(p.shape[0])
+            return f(p, n)
         seeds = case["seeds"]
-        if case["mesh"] == "ensemble":
+        mesh = meshes[case["mesh"]]
+        if case.get("via") == "downscale_field":
+            pred, _ = engine.downscale_field(
+                apply_fn, field, mcfg, cfg, plan=plan, mesh=mesh,
+                ensemble_generators=[gen(s) for s in seeds], device="cpu")
+            counts = torch.zeros(0)
+        elif case["mesh"] != "data":
             run = engine.make_ensemble_tile_parallel_predictor(
-                mcfg, cfg, plan, ens, apply_fn, device="cpu")
+                mcfg, cfg, plan, mesh, apply_fn, device="cpu")
             pred, counts = run(field, [gen(s) for s in seeds])
         else:
             run = engine.make_tile_parallel_predictor(
@@ -248,6 +329,7 @@ def tile(rank, world, workdir):
                                if len(seeds) > 1 else gen(seeds[0]))
         out[f"{case['name']}/pred"] = pred.numpy()
         out[f"{case['name']}/counts"] = counts.numpy()
+        out[f"{case['name']}/rows"] = np.sum(rows)
 
     net = WindDownscalingGAN(GANConfig(model=ModelConfig(**kw["network"])),
                              device="cpu")
@@ -256,7 +338,7 @@ def tile(rank, world, workdir):
     new_group = dist.new_group
     dist.new_group = lambda *a, **k: made.append(a) or new_group(*a, **k)
     try:
-        for members in (1, world, 1):
+        for members in kw["members"] + [1]:
             res = api.downscale(*era5_and_dem(tds), network=net, seed=3,
                                 ensemble_members=members, device="cpu")
             info[str(members)] = api.last_run_info()
@@ -320,12 +402,16 @@ SCENARIOS = {"parallel": parallel, "tile": tile,
 def main():
     scenario, rank, world, port, workdir = sys.argv[1:6]
     rank, world = int(rank), int(world)
+    import faulthandler
+
     import torch
     import torch.distributed as dist
 
     from windtpu_torch.parallel.distributed import initialize_distributed
 
     torch.set_num_threads(1)
+    # Past the run's deadline this rank prints its stacks and exits.
+    faulthandler.dump_traceback_later(TIMEOUT, exit=True)
     initialize_distributed(f"localhost:{port}", world, rank, device="cpu")
     SCENARIOS[scenario](rank, world, Path(workdir))
     dist.destroy_process_group()

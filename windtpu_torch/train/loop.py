@@ -99,7 +99,11 @@ def train(
         state.step = agree(state.step, "the step")
         seed = agree(seed, "the seed")
         if world()[1] > 1:
-            dist.barrier()
+            # NCCL's barrier runs on a card: name this rank's (the current
+            # one, as initialize_distributed set it), or torch picks one
+            # and warns.
+            dist.barrier(device_ids=[torch.cuda.current_device()]
+                         if dist.get_backend() == "nccl" else None)
     rng = torch.Generator(device=state.device).manual_seed(seed)
     history = []
     it = iter(batches)
