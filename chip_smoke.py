@@ -347,15 +347,19 @@ def convlstm_kernel_phase() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from windtpu_torch.ops._build import build
     from windtpu_torch.ops.convlstm import (
         F32_TILES,
         TILES,
+        bf16_grid,
+        bf16_l2_bytes,
         choose_tile,
         choose_tile_f32,
         convlstm_seq,
         convlstm_seq_plain,
         f32_blocks,
     )
+    from windtpu_torch.ops.convlstm_variants import hgmma_counts
 
     cases = [(MAIN_SHAPE, torch.bfloat16, True),
              (MAIN_SHAPE, torch.float32, True),
@@ -383,25 +387,38 @@ def convlstm_kernel_phase() -> dict:
         if not ok:
             fail(f"convlstm_seq disagrees with its plain version at {shape} "
                  f"{dtype}")
-        if dtype == torch.float32:
-            # The f32 route sums a cluster's partials in rank order, with no
-            # atomics: two launches on the same inputs agree in every bit.
-            again = convlstm_seq(zx, rk, hard_sig=hard)
-            torch.cuda.synchronize()
-            if not torch.equal(again, got):
-                fail(f"convlstm_seq's f32 route is not bitwise repeatable "
-                     f"at {shape}")
+        # No atomics: the f32 route sums a cluster's partials in rank
+        # order, the bf16 route runs its K loop in one order.  Two launches
+        # on the same inputs agree in every bit.
+        again = convlstm_seq(zx, rk, hard_sig=hard)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            fail(f"convlstm_seq is not bitwise repeatable at {shape} "
+                 f"{dtype}")
         if i == 0:
             main_err = err
 
+    # The bf16 kernel is wgmma: its SASS holds HGMMA instructions.
+    hgmma = hgmma_counts(build("convlstm").path)
+    print(f"convlstm_seq bf16 kernels, HGMMA instructions in the SASS "
+          f"(CW, BJ, F % 8 == 0): {hgmma}")
+    if not hgmma or min(hgmma.values()) == 0:
+        fail("the bf16 kernel has no HGMMA instruction (or cuobjdump is "
+             "missing)")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16_tiles = {}
     for shape in (MAIN_SHAPE, TRAIN_SHAPE, ENSEMBLE_SHAPE, TRAIN_MAIN_SHAPE,
                   RAGGED_SHAPE, NARROW_SHAPE):
         b, t, h, w, f = shape
-        bm, bj = TILES[choose_tile(b * h * w, f, sms)]
-        blocks = -(-b * h * w // bm) * -(-f // bj)
-        print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj} "
-              f"({blocks} blocks per step on {sms} SMs)")
+        code = choose_tile(b * h * w, f, sms)
+        bm, bj, cluster = TILES[code]
+        tiles, blocks = bf16_grid(b * h * w, f, code, sms)
+        bf16_tiles[shape] = (bm, bj, cluster, tiles, blocks)
+        l2 = bf16_l2_bytes(b * h * w, f, w, bm, bj, cluster)
+        print(f"convlstm_seq {shape} bf16 tile: BM {bm} x BJ {bj}, clusters "
+              f"of {cluster}; {tiles} tiles per step over {blocks} resident "
+              f"blocks ({tiles / blocks:.2f} waves) on {sms} SMs; "
+              f"{l2 / 1e6:.1f} MB from L2 per step (slab and halo windows)")
     for shape in (MAIN_SHAPE, TRAIN_MAIN_SHAPE, TRAIN_RANK_SHAPE,
                   PREPARE_SHAPE, RAGGED_SHAPE, NARROW_F32_SHAPE,
                   TRAIN_RANK4_SHAPE):
@@ -455,9 +472,15 @@ def convlstm_kernel_phase() -> dict:
                 f"launches): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                 f"TFLOP/s; again {ms_again:.4f} ms), library (cuDNN conv "
                 f"part only) {library_ms:.4f} ms "
-                f"({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
-                f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
-                f"{nbytes / 1e6:.1f} MB)")
+                f"({flops / library_ms / 1e9:.1f} TFLOP/s), kernel / library "
+                f"{ms / library_ms:.3f}, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; the kernel "
+                f"at {bound_ms / ms:.1%} of it)")
+        if dtype == torch.bfloat16:
+            bm, bj, cluster, tiles, blocks = bf16_tiles[shape]
+            line += (f"; tile {bm} x {bj}, {tiles} tiles over {blocks} "
+                     f"blocks per step ({tiles / blocks:.2f} waves), clusters "
+                     f"of {cluster}")
         if key is None:
             plain_ms = cuda_ms(lambda: convlstm_seq_plain(zx, rk), iters=5,
                                warmup=1)

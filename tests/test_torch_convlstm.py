@@ -10,6 +10,8 @@ the TPU kernel's custom VJP replays the JAX scan.  The CUDA kernel itself
 is held against the plain version by the gpu-marked tests, on the card.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,16 +22,23 @@ from windtpu.models.layers import _convlstm_scan, hard_sigmoid
 from windtpu.ops.pallas_convlstm import convlstm_seq_fused
 from windtpu_torch.models.layers import convlstm_scan
 from windtpu_torch.ops.convlstm import (
+    _SEQ_ARGTYPES,
+    BF16_BUILT,
     F32_CHUNK,
     F32_TILES,
     K_CHUNK,
     TILES,
     ConvLSTMSeqFunction,
+    bf16_blocks,
+    bf16_l2_bytes,
+    check_tile,
     choose_tile,
     choose_tile_f32,
     convlstm_seq,
     convlstm_seq_plain,
     f32_blocks,
+    halo_windows,
+    launch_sequence,
     pack_recurrent_kernel,
 )
 
@@ -115,7 +124,9 @@ def test_kernel_matches_plain_on_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     # The f32 cases are the f32 paths' shapes at T = 3 (train_main, one of
     # its two ranks, the perceptual train_main, the downscale), a ragged one
-    # and F % 4 != 0, which takes the element-by-element gather.
+    # and F % 4 != 0, which takes the element-by-element gather; the bf16
+    # ones the training shape at T = 4, F = 40 and F = 12 (F % 8 != 0:
+    # single-value epilogue).
     cases = [((2, 4, 24, 24, 128), torch.bfloat16, True, 2.0 ** -5),
              ((2, 4, 24, 24, 128), torch.float32, True, 1e-4),
              ((3, 5, 7, 7, 40), torch.float32, False, 1e-4),
@@ -136,9 +147,27 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (b, t, h, w, f, dtype, err)
-        if dtype == torch.float32:
-            # No atomics: the cluster adds its partial sums in rank order.
-            assert torch.equal(convlstm_seq(zx, rk, hard_sig=hard), got)
+        # No atomics: the f32 cluster adds its partial sums in rank order,
+        # the bf16 route's K loop runs in one order.
+        assert torch.equal(convlstm_seq(zx, rk, hard_sig=hard), got)
+    # The C entry refuses a tile it does not build, before any launch.
+    from windtpu_torch.ops._build import bind
+
+    entry = bind("convlstm", "windtpu_convlstm_seq", _SEQ_ARGTYPES)
+    zx = torch.zeros((1, 2, 4, 4, 32), device="cuda", dtype=torch.bfloat16)
+    rk = torch.zeros((3, 3, 8, 32), device="cuda")
+    slab = pack_recurrent_kernel(rk.bfloat16(), 16, K_CHUNK, k_major=True)
+    y = torch.empty((1, 2, 4, 4, 8), device="cuda", dtype=torch.bfloat16)
+    c = torch.empty((1, 4, 4, 8), device="cuda", dtype=torch.bfloat16)
+    hbuf = torch.zeros((2, 16, K_CHUNK), device="cuda", dtype=torch.bfloat16)
+    failed = ctypes.c_int(-1)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bm, bj, chunk, cluster in ((144, 32, K_CHUNK, 1),
+                                   (64, 16, 32, 1), (64, 16, K_CHUNK, 3)):
+        assert entry(1, zx.data_ptr(), slab.data_ptr(), y.data_ptr(),
+                     c.data_ptr(), hbuf.data_ptr(), 1, 2, 4, 4, 8, 1, bm,
+                     bj, chunk, cluster, stream, ctypes.byref(failed)) != 0
+        assert failed.value == 0
 
 
 def _unpack(packed, f):
@@ -168,19 +197,27 @@ def _packed_step(h, packed, f):
 @pytest.mark.parametrize("f", [8, 12, 40])
 @pytest.mark.parametrize("bj", [8, 16, 32])
 def test_packed_slab_gemm_is_the_conv_step(bj, f):
+    # The bf16 slab is K-major, (nb, 9, 4*bj, Fp): the f32 route's
+    # (nb, 9*Fp, 4*bj) with each tap's block transposed.
     rng = np.random.RandomState(11)
     rk = torch.from_numpy((0.1 * rng.randn(3, 3, f, 4 * f)).astype(
         np.float32))
     h = torch.from_numpy(rng.randn(2, 5, 6, f).astype(np.float32))
-    packed = pack_recurrent_kernel(rk, bj)
+    packed = pack_recurrent_kernel(rk, bj, k_major=True)
     fp = -(-f // K_CHUNK) * K_CHUNK
-    assert packed.shape == (-(-f // bj), 9 * fp, 4 * bj)
+    nb = -(-f // bj)
+    assert packed.shape == (nb, 9, 4 * bj, fp)
     assert packed.is_contiguous() and packed.dtype == rk.dtype
-    assert torch.equal(_unpack(packed, f), rk)
+    # Element (jb, tap, g*bj + j, k) is rk[tap // 3, tap % 3, k, g*F + jb*bj
+    # + j].
+    jb, tap, g, j, k = nb - 1, 5, 2, (f - 1) % bj, f - 1
+    assert packed[jb, tap, g * bj + j, k] == rk[1, 2, k, g * f + jb * bj + j]
+    n_major = packed.transpose(2, 3).reshape(nb, 9 * fp, 4 * bj)
+    assert torch.equal(_unpack(n_major, f), rk)
     # The step of convlstm_seq_plain: F.conv2d with the (4F, F, 3, 3) view.
     want = torch.nn.functional.conv2d(
         h.permute(0, 3, 1, 2), rk.permute(3, 2, 0, 1), padding=1)
-    got = _packed_step(h, packed, f)
+    got = _packed_step(h, n_major, f)
     torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=0,
                                atol=1e-5)
 
@@ -188,25 +225,100 @@ def test_packed_slab_gemm_is_the_conv_step(bj, f):
 def test_packed_slab_pads_with_zeros_and_keeps_bf16():
     f, bj = 12, 16
     rk = torch.ones(3, 3, f, 4 * f, dtype=torch.bfloat16)
-    packed = pack_recurrent_kernel(rk, bj).reshape(1, 9, K_CHUNK, 4, bj)
+    packed = pack_recurrent_kernel(rk, bj, k_major=True).reshape(
+        1, 9, 4, bj, K_CHUNK)
     assert packed.dtype == torch.bfloat16
-    assert packed[..., :f, :, :f].eq(1).all()
-    assert packed[..., f:, :, :].eq(0).all()      # channels k >= F
-    assert packed[..., :, :, f:].eq(0).all()      # channels j >= F
+    assert packed[..., :f, :f].eq(1).all()
+    assert packed[..., f:].eq(0).all()            # channels k >= F
+    assert packed[..., f:, :].eq(0).all()         # channels j >= F
     with pytest.raises(ValueError):
         pack_recurrent_kernel(rk, 12)
 
 
 @pytest.mark.parametrize("shape,tile,blocks", [
-    ((16, 24, 24, 128), 0, 256),   # downscale: 64 x 4 large tiles
-    ((2, 24, 24, 128), 1, 144),    # training: 18 x 8 small tiles, not 32
-    ((3, 7, 7, 40), 1, 9),
+    ((16, 24, 24, 128), 0, 288),   # downscale: 72 x 4 tiles of 128 x 32
+    ((64, 24, 24, 128), 0, 1152),  # 4-member ensemble: 288 x 4
+    ((2, 24, 24, 128), 1, 144),    # training: 18 x 8 tiles of 64 x 16
+    ((3, 7, 7, 40), 1, 12),        # ragged: 3 tiles, 4 in clusters of 2
 ])
 def test_tile_follows_the_shape(shape, tile, blocks):
     b, h, w, f = shape
     assert choose_tile(b * h * w, f) == tile
-    bm, bj = TILES[tile]
-    assert -(-b * h * w // bm) * -(-f // bj) == blocks
+    assert bf16_blocks(b * h * w, f, *TILES[tile]) == blocks
+
+
+@pytest.mark.parametrize("dtype,bm,bj,chunk,cluster", [
+    (torch.bfloat16, 144, 32, 64, 2),   # PR 3's mma.sync tile
+    (torch.bfloat16, 128, 32, 32, 2),   # PR 3's stage depth
+    (torch.bfloat16, 128, 32, 64, 3),   # no multicast to 3 blocks
+    (torch.float32, 64, 32, 16, 2),     # f32 splits by whole tap rows
+    (torch.float32, 128, 32, 16, 1),
+])
+def test_entry_refuses_a_tile_it_does_not_build(dtype, bm, bj, chunk,
+                                                cluster):
+    with pytest.raises(ValueError, match="builds no"):
+        check_tile(dtype, bm, bj, chunk, cluster)
+    # launch_sequence runs the check before it reaches the C entry (its
+    # stage depth is the route's own).
+    if chunk == (K_CHUNK if dtype == torch.bfloat16 else F32_CHUNK):
+        zx = torch.zeros((1, 2, 4, 4, 32), dtype=dtype)
+        with pytest.raises(ValueError, match="builds no"):
+            launch_sequence(None, zx, torch.zeros(3, 3, 8, 32), True, bm,
+                            bj, cluster)
+    for code, (bm, bj, cluster) in TILES.items():
+        check_tile(torch.bfloat16, bm, bj, K_CHUNK, cluster)
+        assert (bm, bj) in BF16_BUILT
+
+
+@pytest.mark.parametrize("b,h,w,f,bm", [
+    (3, 7, 7, 40, 64),      # images smaller than a tile
+    (2, 5, 9, 12, 128),
+    (1, 6, 24, 8, 128),     # the downscale width: one window, two boxes
+    (2, 3, 150, 8, 128),    # wider than the window: three windows
+])
+def test_halo_window_rows_are_the_im2col(b, h, w, f, bm):
+    # The bf16 kernel stages hbuf rows by TMA boxes (zeros outside hbuf)
+    # into 128-byte swizzled rows, reads tap (dy, dx) of pixel m at window
+    # row (dy + 1) * S + (m - m0) + 1 + dx through the swizzle, and zeroes
+    # taps outside the image: that must be the im2col of h.
+    m = b * h * w
+    hb = np.random.RandomState(14).randn(m, K_CHUNK).astype(np.float32)
+    hb[:, f:] = 0.0
+    hp = np.pad(hb.reshape(b, h, w, K_CHUNK), ((0, 0), (1, 1), (1, 1),
+                                               (0, 0)))
+    want = np.stack([hp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                     for dx in range(3)], axis=3).reshape(m, 9, K_CHUNK)
+    for m0 in range(0, m, bm):
+        s, starts, p = halo_windows(m0, bm, w)
+        assert len(starts) * p <= 3 * p
+        window = np.full((3 * p, 8, 8), np.nan, np.float32)
+        rows = np.arange(p)
+        for i, start in enumerate(starts):
+            g = start + rows
+            vals = np.where(((g >= 0) & (g < m))[:, None],
+                            hb[np.clip(g, 0, m - 1)], 0.0)
+            r = i * p + rows
+            for j in range(8):       # 16-byte chunk j of row r at j ^ r % 8
+                window[r, j ^ (r & 7)] = vals[:, 8 * j:8 * j + 8]
+        pix = np.arange(m0, min(m0 + bm, m))
+        py, px = pix % (h * w) // w, pix % w
+        for tap in range(9):
+            dy, dx = tap // 3 - 1, tap % 3 - 1
+            r = (dy + 1) * s + (pix - m0) + 1 + dx
+            got = np.concatenate([window[r, j ^ (r & 7)] for j in range(8)],
+                                 axis=1)
+            inside = ((py + dy >= 0) & (py + dy < h) & (px + dx >= 0)
+                      & (px + dx < w))
+            got = np.where(inside[:, None], got, 0.0)
+            np.testing.assert_array_equal(got, want[pix, tap])
+
+
+def test_bf16_l2_bytes_at_the_downscale_shape():
+    # 36 clusters x 4 channel tiles read a 294,912-byte slab block each;
+    # 288 blocks read two 136-row windows per 64-channel chunk.
+    bm, bj, cluster = TILES[0]
+    got = bf16_l2_bytes(9216, 128, 24, bm, bj, cluster)
+    assert got == 36 * 4 * 294912 + 288 * 2 * 2 * 136 * 128
 
 
 @pytest.mark.parametrize("f", [6, 40, 128])

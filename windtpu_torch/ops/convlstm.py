@@ -4,16 +4,18 @@
 ``windtpu/ops/pallas_convlstm.py:convlstm_seq_fused``: pre-biased gate
 activations ``zx`` (B, T, H, W, 4F) and a recurrent kernel ``rk``
 (3, 3, F, 4F) in, the hidden-state sequence (B, T, H, W, F) out.  On a CUDA
-tensor it launches ``csrc/convlstm.cu`` once per time step; on a CPU tensor
-it runs :func:`convlstm_seq_plain`, the same arithmetic in plain PyTorch
-with the same rounding points (f32 accumulation and gate math, h and c
-stored in the I/O dtype between steps).  The kernel has two routes by
-dtype, each with ``rk`` first packed by :func:`pack_recurrent_kernel` for
-the tile the route's rule picks: bf16 on the tensor cores
-(:func:`choose_tile`), and f32 on the CUDA cores (:func:`choose_tile_f32`,
-which also splits the taps over a cluster of blocks).  There is no
-fallback from the kernel to the plain version.  The gradient comes from
-:class:`ConvLSTMSeqFunction`, whose backward replays the recurrence.
+tensor it runs ``csrc/convlstm.cu``: one host call enqueues the T launches of
+a sequence, one per time step; on a CPU tensor it runs
+:func:`convlstm_seq_plain`, the same arithmetic in plain PyTorch with the
+same rounding points (f32 accumulation and gate math, h and c stored in the
+I/O dtype between steps).  The kernel has two routes by dtype, each with
+``rk`` first packed by :func:`pack_recurrent_kernel` for the tile the
+route's rule picks: bf16 on the tensor cores through ``wgmma``
+(:func:`choose_tile`, clusters of blocks sharing the packed slab), and f32
+on the CUDA cores (:func:`choose_tile_f32`, which also splits the taps over
+a cluster of blocks).  There is no fallback from the kernel to the plain
+version.  The gradient comes from :class:`ConvLSTMSeqFunction`, whose
+backward replays the recurrence.
 
 The kernel library is built and bound at first use by
 :mod:`windtpu_torch.ops._build`; nothing is compiled or loaded when this
@@ -32,20 +34,69 @@ from windtpu_torch.ops._build import bind
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The bf16 route's stage depth and tiles: code -> (pixels BM, channels BJ)
-# per block.  Each launch passes its tile's BM, BJ and K_CHUNK to the C
-# entry, which refuses any that csrc/convlstm.cu does not build (KC,
-# LargeTile, SmallTile).
-K_CHUNK = 32
-TILES = {0: (144, 32), 1: (64, 16)}
+# The bf16 route's stage depth and tiles: code -> (pixels BM, channels BJ,
+# cluster), where a cluster of ``cluster`` blocks along the pixels shares
+# each stage of the packed slab (one TMA multicast).  Each call passes BM,
+# BJ, K_CHUNK and the cluster to the C entry, which refuses any that
+# csrc/convlstm.cu does not build (BF16_BUILT, KC, clusters of 1, 2, 4).
+K_CHUNK = 64
+TILES = {0: (128, 32, 2), 1: (64, 16, 2)}
+BF16_BUILT = {(128, 32), (64, 16)}
+BF16_CLUSTERS = (1, 2, 4)
+
+
+def bf16_blocks(m: int, f: int, bm: int, bj: int, cluster: int) -> int:
+    """Output tiles per step of a bf16 tile: pixel tiles rounded up to
+    whole clusters, times channel tiles."""
+    tiles = -(-m // bm)
+    return -(-tiles // cluster) * cluster * -(-f // bj)
+
+
+def bf16_grid(m: int, f: int, code: int, sms: int = 132):
+    """(output tiles, blocks) of one bf16 step with tile ``code``: the
+    kernel is persistent, so it launches as many whole clusters as fit on
+    the card at once (one block per SM for the 128-pixel tile, two for the
+    64-pixel one; the C entry asks the runtime) and no more than the
+    tiles."""
+    bm, bj, cluster = TILES[code]
+    tiles = bf16_blocks(m, f, bm, bj, cluster)
+    per_sm = 1 if bm == 128 else 2
+    return tiles, min(tiles, sms * per_sm // cluster * cluster)
 
 
 def choose_tile(m: int, f: int, sms: int = 132) -> int:
     """The bf16 route's tile for M = B*H*W pixels and F channels: the large
-    tile where it gives at least one block per SM, else the small one
-    (4x the blocks)."""
-    bm, bj = TILES[0]
-    return 0 if -(-m // bm) * -(-f // bj) >= sms else 1
+    tile (two consumer warpgroups) where it gives at least one tile per
+    SM, else the small one (one warpgroup, 4x the tiles)."""
+    return 0 if bf16_blocks(m, f, *TILES[0]) >= sms else 1
+
+
+def halo_windows(m0: int, bm: int, w: int):
+    """The bf16 kernel's halo windows for the block of pixels m0 .. m0+bm-1
+    of images W wide, as csrc/convlstm.cu computes them: (S, starts, p).
+    Window rows are rows of hbuf (pixels); box i of ``p`` rows (bm + 2
+    rounded up to 8) lands at window row i * p and starts at pixel
+    ``starts[i]`` (rows outside hbuf read as zeros).  Tap (dy, dx) of pixel
+    m is window row (dy + 1) * S + (m - m0) + 1 + dx: one window (S = W)
+    where bm + 2W + 2 rows fit the 3 * p reserved, else one per tap row
+    (S = p)."""
+    p = -(-(bm + 2) // 8) * 8
+    if 2 * w + bm + 2 <= 3 * p:
+        boxes = -(-(2 * w + bm + 2) // p)
+        return w, [m0 - w - 1 + i * p for i in range(boxes)], p
+    return p, [m0 + (i - 1) * w - 1 for i in range(3)], p
+
+
+def bf16_l2_bytes(m: int, f: int, w: int, bm: int, bj: int,
+                  cluster: int) -> int:
+    """Bytes one bf16 step reads from L2 into shared memory: each cluster's
+    slab block once (multicast), each block's halo windows once per
+    channel chunk (zx, c and the stores are not counted)."""
+    fp = -(-f // K_CHUNK) * K_CHUNK
+    blocks = bf16_blocks(m, f, bm, bj, cluster)
+    _, starts, p = halo_windows(0, bm, w)
+    slab = blocks // cluster * 9 * fp * 4 * bj * 2
+    return slab + blocks * (fp // K_CHUNK) * len(starts) * p * K_CHUNK * 2
 
 
 # The f32 route's stage depth and tiles: code -> (pixels BM, channels BJ,
@@ -72,14 +123,18 @@ def choose_tile_f32(m: int, f: int, sms: int = 132) -> int:
 
 
 def pack_recurrent_kernel(rk: torch.Tensor, bj: int,
-                          chunk: int = K_CHUNK) -> torch.Tensor:
-    """(3, 3, F, 4F) -> a route's slab (ceil(F/bj), 9*Fp, 4*bj), Fp = F
-    rounded up to the route's stage depth ``chunk`` (``K_CHUNK`` for bf16,
-    ``F32_CHUNK`` for f32): block ``jb`` of ``bj`` channels reads the
-    contiguous (9*Fp, 4*bj) operand whose row ``tap*Fp + k`` and column
-    ``g*bj + j`` hold ``rk[tap // 3, tap % 3, k, g*F + jb*bj + j]``, zero
-    where ``k`` or ``jb*bj + j`` is not below F.  Plain torch ops, so it
-    runs where ``rk`` lies and keeps its dtype."""
+                          chunk: int = K_CHUNK, *,
+                          k_major: bool = False) -> torch.Tensor:
+    """(3, 3, F, 4F) -> a route's slab, Fp = F rounded up to the route's
+    stage depth ``chunk`` (``K_CHUNK`` for bf16, ``F32_CHUNK`` for f32).
+    Block ``jb`` of ``bj`` channels gets the 9 * Fp rows (tap, then channel
+    ``k``) by 4 * bj columns (gate ``g``, then channel ``j``) holding
+    ``rk[tap // 3, tap % 3, k, g*F + jb*bj + j]``, zero where ``k`` or
+    ``jb*bj + j`` is not below F.  The f32 route reads it as
+    (ceil(F/bj), 9*Fp, 4*bj), columns contiguous; with ``k_major`` it is
+    (ceil(F/bj), 9, 4*bj, Fp), channels ``k`` contiguous, as the bf16
+    route's wgmma reads it.  Plain torch ops, so it runs where ``rk`` lies
+    and keeps its dtype."""
     if bj % 8:
         raise ValueError(f"bj must be a multiple of 8; got {bj}")
     f = rk.shape[2]
@@ -87,8 +142,27 @@ def pack_recurrent_kernel(rk: torch.Tensor, bj: int,
     nb = -(-f // bj)
     w = rk.reshape(9, f, 4, f)                       # tap, k, gate, j
     w = F.pad(w, (0, nb * bj - f, 0, 0, 0, fp - f))  # j, then k
-    w = w.reshape(9, fp, 4, nb, bj).permute(3, 0, 1, 2, 4)
-    return w.reshape(nb, 9 * fp, 4 * bj).contiguous()
+    w = w.reshape(9, fp, 4, nb, bj)
+    if k_major:
+        return w.permute(3, 0, 2, 4, 1).reshape(nb, 9, 4 * bj,
+                                                fp).contiguous()
+    return w.permute(3, 0, 1, 2, 4).reshape(nb, 9 * fp, 4 * bj).contiguous()
+
+
+def check_tile(dtype: torch.dtype, bm: int, bj: int, chunk: int,
+               cluster: int) -> None:
+    """Raise where the C entry would refuse the tile: the tiles, stage
+    depths and clusters that csrc/convlstm.cu builds per route."""
+    if dtype == torch.bfloat16:
+        ok = ((bm, bj) in BF16_BUILT and chunk == K_CHUNK
+              and cluster in BF16_CLUSTERS)
+    else:
+        ok = ((bm, bj) in {t[:2] for t in F32_TILES.values()}
+              and chunk == F32_CHUNK and cluster in (1, 3))
+    if not ok:
+        raise ValueError(
+            f"csrc/convlstm.cu builds no {dtype} tile BM {bm} x BJ {bj} "
+            f"with stage depth {chunk} in clusters of {cluster}")
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -146,38 +220,60 @@ def convlstm_seq_plain(zx: torch.Tensor, rk: torch.Tensor, *,
     return torch.stack(ys, dim=1)
 
 
-_STEP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+_SEQ_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 10
+                 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+
+
+def launch_sequence(entry, zx: torch.Tensor, rk: torch.Tensor,
+                    hard_sig: bool, bm: int, bj: int,
+                    cluster: int) -> torch.Tensor:
+    """One call of ``entry`` (``windtpu_convlstm_seq`` of a built library)
+    on ``zx``'s device and current stream: the T launches of a sequence with
+    the given tile, ``rk`` packed for it.  The bf16 route also gets hbuf,
+    its (2, B*H*W, Fp) copy of h with channels >= F zero.  Raises on a tile
+    the C entry does not build, and on its error code, naming the step."""
+    b, t, h, w, f4 = zx.shape
+    f = f4 // 4
+    bf16 = zx.dtype == torch.bfloat16
+    chunk = K_CHUNK if bf16 else F32_CHUNK
+    check_tile(zx.dtype, bm, bj, chunk, cluster)
+    slab = pack_recurrent_kernel(rk.to(zx.dtype), bj, chunk, k_major=bf16)
+    y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
+    c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
+    hbuf = None
+    if bf16:
+        fp = -(-f // chunk) * chunk
+        hbuf = (torch.empty if fp == f else torch.zeros)(
+            (2, b * h * w, fp), dtype=zx.dtype, device=zx.device)
+    failed = ctypes.c_int(0)
+    with torch.cuda.device(zx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(_DTYPE_CODES[zx.dtype], zx.data_ptr(), slab.data_ptr(),
+                    y.data_ptr(), c.data_ptr(),
+                    None if hbuf is None else hbuf.data_ptr(), b, t, h, w,
+                    f, int(hard_sig), bm, bj, chunk, cluster, stream,
+                    ctypes.byref(failed))
+    if err:
+        raise RuntimeError(f"convlstm kernel launch failed at step "
+                           f"{failed.value}: CUDA error {err}")
+    return y
 
 
 def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
                      hard_sig: bool) -> torch.Tensor:
-    """T launches of the step kernel on ``zx``'s device and current stream."""
-    step = bind("convlstm", "windtpu_convlstm_step", _STEP_ARGTYPES)
+    """The sequence with the tile the route's rule picks for the shape; the
+    T launches are counted in ``convlstm_seq.launches``."""
+    entry = bind("convlstm", "windtpu_convlstm_seq", _SEQ_ARGTYPES)
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
     sms = torch.cuda.get_device_properties(zx.device).multi_processor_count
-    split = 1
     if zx.dtype == torch.bfloat16:
-        bm, bj = TILES[choose_tile(b * h * w, f, sms)]
-        chunk = K_CHUNK
+        bm, bj, cluster = TILES[choose_tile(b * h * w, f, sms)]
     else:
-        bm, bj, split = F32_TILES[choose_tile_f32(b * h * w, f, sms)]
-        chunk = F32_CHUNK
-    rk = pack_recurrent_kernel(rk.to(zx.dtype), bj, chunk)
-    y = torch.empty((b, t, h, w, f), dtype=zx.dtype, device=zx.device)
-    c = torch.empty((b, h, w, f), dtype=zx.dtype, device=zx.device)
-    with torch.cuda.device(zx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for s in range(t):
-            err = step(_DTYPE_CODES[zx.dtype], zx.data_ptr(), rk.data_ptr(),
-                       y.data_ptr(), c.data_ptr(), b, t, h, w, f, s,
-                       int(hard_sig), bm, bj, chunk, split, stream)
-            if err:
-                raise RuntimeError(
-                    f"convlstm kernel launch failed at step {s}: CUDA error "
-                    f"{err}")
-            convlstm_seq.launches += 1
+        bm, bj, cluster = F32_TILES[choose_tile_f32(b * h * w, f, sms)]
+    y = launch_sequence(entry, zx, rk, hard_sig, bm, bj, cluster)
+    convlstm_seq.launches += t
     return y
 
 
@@ -219,10 +315,10 @@ def convlstm_seq(zx: torch.Tensor, rk: torch.Tensor, *,
     """ConvLSTM sequence: (B, T, H, W, 4F), (3, 3, F, 4F) -> (B, T, H, W, F).
 
     ``zx`` carries the input conv with the gate bias and the unit forget
-    bias folded in.  CUDA tensors launch the kernel (T launches, counted in
-    ``convlstm_seq.launches``) through :class:`ConvLSTMSeqFunction`, which
-    gives the gradients for ``zx`` and ``rk``; CPU tensors take the plain
-    version under ordinary autograd."""
+    bias folded in.  CUDA tensors launch the kernel (one host call, T
+    launches, counted in ``convlstm_seq.launches``) through
+    :class:`ConvLSTMSeqFunction`, which gives the gradients for ``zx`` and
+    ``rk``; CPU tensors take the plain version under ordinary autograd."""
     _check(zx, rk)
     if zx.device.type == "cpu":
         return convlstm_seq_plain(zx, rk, hard_sig=hard_sig)
