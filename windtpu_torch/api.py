@@ -36,6 +36,7 @@ from windtpu_torch.infer.template import (
 )
 from windtpu_torch.infer.tiling import plan_tiling
 from windtpu_torch.io.dataset import DataArray, Dataset
+from windtpu_torch.utils.logging import span
 
 # Shipped-model constants (the JAX package's api.py).
 SEQUENCE_LENGTH = 24
@@ -253,8 +254,9 @@ def predict(
 
         # Host side: a dozen intensive statistics of the host-resident
         # input; only the two target energies go to the device.
-        gate_target = np.exp(predict_log_energy_np(
-            gate_params, field)).astype(np.float32)
+        with span("predict.gate"):
+            gate_target = np.exp(predict_log_energy_np(
+                gate_params, field)).astype(np.float32)
         gate_floor = np.asarray(gate_params["floor"], np.float32)
 
     t_total, h, w = field.shape[:3]
@@ -278,9 +280,10 @@ def predict(
     if streaming:
         from windtpu_torch.infer.streaming import downscale_field_streaming
 
-        pred, _ = downscale_field_streaming(
-            network.generator, field, mcfg, icfg, plan=plan, device=dev,
-            **members)
+        with span("predict.engine"):
+            pred, _ = downscale_field_streaming(
+                network.generator, field, mcfg, icfg, plan=plan, device=dev,
+                **members)
         pred = _trim_canvas(pred, plan, icfg)
         if gate_params is not None:
             from windtpu_torch.models.texture_gate import \
@@ -288,7 +291,8 @@ def predict(
 
             # The streamed canvas lives in host memory because it does not
             # fit on the device: gate it there, frame at a time.
-            pred = apply_gate_targeted_np(gate_target, gate_floor, pred)
+            with span("predict.gate_apply"):
+                pred = apply_gate_targeted_np(gate_target, gate_floor, pred)
         mode, mesh, ensemble_sharded = "streaming", None, False
     else:
         if isinstance(mesh, str) and mesh == "auto":
@@ -297,16 +301,20 @@ def predict(
                             and "ensemble" in mesh.axis_names
                             and ensemble_members
                             % mesh.axis_size("ensemble") == 0)
-        pred, _ = downscale_field(network.generator, field, mcfg, icfg,
-                                  plan=plan, device=dev, mesh=mesh,
-                                  **members)
+        with span("predict.engine"):
+            pred, _ = downscale_field(network.generator, field, mcfg, icfg,
+                                      plan=plan, device=dev, mesh=mesh,
+                                      **members)
         pred = _trim_canvas(pred, plan, icfg)
         if gate_params is not None:
             # On the whole canvas of every rank, after the all-reduces.
-            _gate_members_on_device(
-                torch.as_tensor(gate_target, device=dev),
-                torch.as_tensor(gate_floor, device=dev), pred, member_axis)
-        pred = pred.cpu().numpy()
+            with span("predict.gate_apply"):
+                _gate_members_on_device(
+                    torch.as_tensor(gate_target, device=dev),
+                    torch.as_tensor(gate_floor, device=dev), pred,
+                    member_axis)
+        with span("predict.readback"):
+            pred = pred.cpu().numpy()
         tile_parallel = mesh is not None and mesh.axis_size("data") > 1
         mode = (("ensemble" if member_axis else "tile" if tile_parallel
                  else "single")
@@ -317,8 +325,9 @@ def predict(
         ensemble_sharded=ensemble_sharded,
         n_devices=1 if mesh is None else mesh.size,
         texture_gate=gate_params is not None)
-    return _assemble_output(pred, member_axis, plan, icfg, time_vals, lat,
-                            lon, ensemble_members)
+    with span("predict.assemble"):
+        return _assemble_output(pred, member_axis, plan, icfg, time_vals,
+                                lat, lon, ensemble_members)
 
 
 def _gate_members_on_device(target, floor, pred, member_axis: bool) -> None:
@@ -383,10 +392,12 @@ def downscale(
 ) -> Dataset:
     """ERA5 dataset + DEM raster + bbox -> downscaled dataset.  Extra
     keyword arguments reach :func:`predict`."""
-    template = build_high_res_template_from_era5(
-        era5, range_lon=range_lon, range_lat=range_lat)
-    inputs_era5 = process_era5(era5, template)
-    inputs_topo = process_topo(raster_topo, template)
-    return predict(inputs_era5, inputs_topo, template,
-                   overlap_factor=overlap_factor, network=network,
-                   device=device, **predict_kwargs)
+    with span("downscale"):
+        with span("downscale.template"):
+            template = build_high_res_template_from_era5(
+                era5, range_lon=range_lon, range_lat=range_lat)
+            inputs_era5 = process_era5(era5, template)
+            inputs_topo = process_topo(raster_topo, template)
+        return predict(inputs_era5, inputs_topo, template,
+                       overlap_factor=overlap_factor, network=network,
+                       device=device, **predict_kwargs)

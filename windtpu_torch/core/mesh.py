@@ -30,6 +30,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from windtpu_torch.utils.logging import span
+
 
 def world() -> Tuple[int, int]:
     """(rank, world size) of the process group, (0, 1) without one."""
@@ -162,7 +164,8 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     Counts the bytes it reduces in ``all_reduce.bytes``."""
     if group is not None:
         all_reduce.bytes += x.numel() * x.element_size()
-        dist.all_reduce(x, group=group)
+        with span("mesh.all_reduce"):
+            dist.all_reduce(x, group=group)
     return x
 
 

@@ -33,6 +33,7 @@ from windtpu_torch.core.config import DataConfig
 from windtpu_torch.core.device import resolve_device
 from windtpu_torch.data.decoders import NaiveDecoder
 from windtpu_torch.data.providers import Provider
+from windtpu_torch.utils.logging import span
 
 
 class SyntheticDayProvider(Provider):
@@ -293,21 +294,27 @@ class BatchGenerator:
         def put(item):
             arrays = item if isinstance(item, tuple) else (item,)
             out = []
-            for a in arrays:
-                if mesh is not None:
-                    a = shard_batch(mesh, a, axis)
-                t = torch.from_numpy(np.ascontiguousarray(a))
-                if cuda:
-                    t = t.pin_memory()
-                out.append(t.to(device, non_blocking=cuda))
+            with span("data.upload"):
+                for a in arrays:
+                    if mesh is not None:
+                        a = shard_batch(mesh, a, axis)
+                    t = torch.from_numpy(np.ascontiguousarray(a))
+                    if cuda:
+                        t = t.pin_memory()
+                    out.append(t.to(device, non_blocking=cuda))
             return tuple(out) if isinstance(item, tuple) else out[0]
 
         it = iter(self)
-        nxt = put(next(it))
+
+        def host_batch():
+            with span("data.host_batch"):
+                return next(it)
+
+        nxt = put(host_batch())
         while True:
             cur = nxt
             try:
-                nxt = put(next(it))
+                nxt = put(host_batch())
             except StopIteration:
                 yield cur
                 return

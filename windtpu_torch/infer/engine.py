@@ -38,6 +38,7 @@ from windtpu_torch.core.config import InferenceConfig, ModelConfig
 from windtpu_torch.core.device import resolve_device
 from windtpu_torch.core.mesh import Mesh, all_reduce
 from windtpu_torch.infer.tiling import TilingPlan, plan_tiling
+from windtpu_torch.utils.logging import span
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 Seed = Union[int, torch.Generator]
@@ -302,7 +303,8 @@ def _build_predictor(mcfg, icfg, plan, apply_fn, device, n_shards: int = 1,
         n_members = len(gens)
         t_total, h, w, _ = field.shape
         groups = field_plan((t_total, h, w))
-        mean, std = stats_pass(field, groups)
+        with span("engine.stats"):
+            mean, std = stats_pass(field, groups)
         counts = coverage
         if counts.shape[0] < t_total:
             counts = torch.cat([counts, counts.new_zeros(
@@ -312,15 +314,17 @@ def _build_predictor(mcfg, icfg, plan, apply_fn, device, n_shards: int = 1,
                                   mcfg.out_channels))
         _skip_noise(gens, noise_shape, own.start, field.device)
         for g, ix, starts in groups:
-            preds = _group_apply(apply_fn, (field[ix] - mean) / std,
-                                 weights[g], gens, mcfg, icfg)
-            for i, (t0, y0, x0) in enumerate(starts):
-                canvas[:, t0:t0 + seq, y0:y0 + size,
-                       x0:x0 + size] += preds[:, i]
-        all_reduce(canvas, group)
-        # In place: the overlap mean adds no canvas-sized temporary.
-        out = canvas.div_(torch.clamp(counts, min=1.0)).masked_fill_(
-            counts == 0, float("nan"))
+            with span("engine.group"):
+                preds = _group_apply(apply_fn, (field[ix] - mean) / std,
+                                     weights[g], gens, mcfg, icfg)
+                for i, (t0, y0, x0) in enumerate(starts):
+                    canvas[:, t0:t0 + seq, y0:y0 + size,
+                           x0:x0 + size] += preds[:, i]
+        with span("engine.overlap_mean"):
+            all_reduce(canvas, group)
+            # In place: the overlap mean adds no canvas-sized temporary.
+            out = canvas.div_(torch.clamp(counts, min=1.0)).masked_fill_(
+                counts == 0, float("nan"))
         return (out if members else out[0]), counts[..., 0]
 
     return run
@@ -355,25 +359,27 @@ def downscale_field(
     icfg = icfg or InferenceConfig(
         sequence_length=mcfg.sequence_length, image_size=mcfg.image_size,
         noise_channels=mcfg.noise_channels)
-    field = torch.as_tensor(field, dtype=torch.float32, device=device)
-    t, h, w, _ = field.shape
-    if plan is None:
-        plan = plan_tiling(h, w, t, icfg.image_size, icfg.sequence_length,
-                           icfg.overlap_factor)
-    if ensemble_generators is not None:
-        gens = [_as_generator(g, device) for g in ensemble_generators]
-        if (mesh is not None and "ensemble" in mesh.axis_names
+    with span("engine.plan"):
+        field = torch.as_tensor(field, dtype=torch.float32, device=device)
+        t, h, w, _ = field.shape
+        if plan is None:
+            plan = plan_tiling(h, w, t, icfg.image_size,
+                               icfg.sequence_length, icfg.overlap_factor)
+        if ensemble_generators is not None:
+            gens = [_as_generator(g, device) for g in ensemble_generators]
+        else:
+            gens = _as_generator(0 if generator is None else generator,
+                                 device)
+        if (ensemble_generators is not None and mesh is not None
+                and "ensemble" in mesh.axis_names
                 and len(gens) % mesh.axis_size("ensemble") == 0):
             predictor = make_ensemble_tile_parallel_predictor(
                 mcfg, icfg, plan, mesh, apply_fn, tile_axis, "ensemble",
                 device)
-            return predictor(field, gens)[0], plan
-    if mesh is not None:
-        predictor = make_tile_parallel_predictor(mcfg, icfg, plan, mesh,
-                                                 apply_fn, tile_axis, device)
-    else:
-        predictor = make_tiled_predictor(mcfg, icfg, plan, apply_fn, device)
-    if ensemble_generators is not None:
-        return predictor(field, gens)[0], plan
-    gen = _as_generator(0 if generator is None else generator, device)
-    return predictor(field, gen)[0], plan
+        elif mesh is not None:
+            predictor = make_tile_parallel_predictor(
+                mcfg, icfg, plan, mesh, apply_fn, tile_axis, device)
+        else:
+            predictor = make_tiled_predictor(mcfg, icfg, plan, apply_fn,
+                                             device)
+    return predictor(field, gens)[0], plan

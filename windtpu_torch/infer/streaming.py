@@ -43,6 +43,7 @@ from windtpu_torch.infer.engine import (
     _stitch_starts,
 )
 from windtpu_torch.infer.tiling import TilingPlan, plan_tiling
+from windtpu_torch.utils.logging import span
 
 
 def _clamped_start(start: int, size: int, dim: int) -> int:
@@ -203,8 +204,9 @@ def downscale_field_streaming(
                               np.float32)], axis=0)
     elif counts.shape[0] > t_total:
         counts = counts[:t_total]  # engine trims the same way (engine.py)
-    mean, std = _host_stats(field, origins_g, weights_g, seq, img,
-                            icfg.replicate_normalization_quirk)
+    with span("engine.stats"):
+        mean, std = _host_stats(field, origins_g, weights_g, seq, img,
+                                icfg.replicate_normalization_quirk)
     weights_dev = torch.as_tensor(weights_g, device=device)
     canvases = np.zeros(
         (n_members, t_total, h, w_pix, mcfg.out_channels), np.float32)
@@ -255,11 +257,13 @@ def downscale_field_streaming(
 
     with torch.no_grad():
         for g in range(origins_g.shape[0]):
-            dispatch(g)
+            with span("engine.group"):
+                dispatch(g)
             if g > 0:
                 stitch(g - 1)         # while group g computes
         stitch(origins_g.shape[0] - 1)
-    out = np.where(counts[None] > 0,
-                   canvases / np.maximum(counts[None], 1.0), np.nan)
+    with span("engine.overlap_mean"):
+        out = np.where(counts[None] > 0,
+                       canvases / np.maximum(counts[None], 1.0), np.nan)
     return (out if members else out[0]), plan
 

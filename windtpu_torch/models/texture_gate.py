@@ -35,6 +35,8 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from windtpu_torch.utils.logging import span
+
 Params = Dict[str, Union[np.ndarray, torch.Tensor]]
 
 SIGMA = 7.0
@@ -273,10 +275,12 @@ def features_np(low) -> np.ndarray:
 def predict_log_energy_np(params: Params, low) -> np.ndarray:
     """Predicted log truth high-pass energy, shape (..., 2)."""
     p = {k: np.asarray(v) for k, v in params.items()}
-    f = (features_np(low) - p["f_mu"]) / p["f_sd"]
-    h = np.tanh(f @ p["w1"] + p["b1"])
-    h = np.tanh(h @ p["w2"] + p["b2"])
-    return (h @ p["w3"] + p["b3"])[..., 0]
+    with span("gate.features"):
+        f = (features_np(low) - p["f_mu"]) / p["f_sd"]
+    with span("gate.mlp"):
+        h = np.tanh(f @ p["w1"] + p["b1"])
+        h = np.tanh(h @ p["w2"] + p["b2"])
+        return (h @ p["w3"] + p["b3"])[..., 0]
 
 
 def apply_gate_targeted_np(pred_energy, floor, fake) -> np.ndarray:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from windtpu_torch.ops._build import bind
+from windtpu_torch.utils.logging import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -320,12 +321,13 @@ def convlstm_seq(zx: torch.Tensor, rk: torch.Tensor, *,
     :class:`ConvLSTMSeqFunction`, which gives the gradients for ``zx`` and
     ``rk``; CPU tensors take the plain version under ordinary autograd."""
     _check(zx, rk)
-    if zx.device.type == "cpu":
-        return convlstm_seq_plain(zx, rk, hard_sig=hard_sig)
-    if zx.device.type != "cuda":
-        raise ValueError(f"convlstm runs on CUDA or CPU tensors; got "
-                         f"{zx.device}")
-    return ConvLSTMSeqFunction.apply(zx, rk, hard_sig)
+    with span("ops.k1"):
+        if zx.device.type == "cpu":
+            return convlstm_seq_plain(zx, rk, hard_sig=hard_sig)
+        if zx.device.type != "cuda":
+            raise ValueError(f"convlstm runs on CUDA or CPU tensors; got "
+                             f"{zx.device}")
+        return ConvLSTMSeqFunction.apply(zx, rk, hard_sig)
 
 
 convlstm_seq.launches = 0

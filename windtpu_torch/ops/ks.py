@@ -26,6 +26,7 @@ from windtpu_torch.metrics.metrics import (
     spatially_convolved_ks_stat,
 )
 from windtpu_torch.ops._build import bind
+from windtpu_torch.utils.logging import span
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -58,21 +59,24 @@ def spatial_ks(real: torch.Tensor, fake: torch.Tensor,
     if num_points < 1:
         raise ValueError(f"num_points must be positive; got {num_points}")
     real, fake = real.detach(), fake.detach()
-    if real.device.type == "cpu":
-        return spatially_convolved_ks_stat(real, fake, patch_size,
-                                           num_points, lo, hi)
-    if real.device.type != "cuda":
-        raise ValueError(f"spatial_ks runs on CUDA or CPU tensors; got "
-                         f"{real.device}")
-    real, fake = (x if x.dtype in _DTYPE_CODES else x.float()
-                  for x in (real, fake))
-    b, t, _, _, c = real.shape
-    out = torch.empty((b * t * c, h - patch_size + 1, w - patch_size + 1),
-                      dtype=torch.float32, device=real.device)
-    launch_spatial_ks(real.contiguous(), fake.contiguous(),
-                      ascending_thresholds(num_points, lo, hi, real.device),
-                      out, patch_size)
-    return torch.mean(out, dim=0)
+    with span("ops.k2"):
+        if real.device.type == "cpu":
+            return spatially_convolved_ks_stat(real, fake, patch_size,
+                                               num_points, lo, hi)
+        if real.device.type != "cuda":
+            raise ValueError(f"spatial_ks runs on CUDA or CPU tensors; got "
+                             f"{real.device}")
+        real, fake = (x if x.dtype in _DTYPE_CODES else x.float()
+                      for x in (real, fake))
+        b, t, _, _, c = real.shape
+        out = torch.empty((b * t * c, h - patch_size + 1,
+                           w - patch_size + 1),
+                          dtype=torch.float32, device=real.device)
+        launch_spatial_ks(real.contiguous(), fake.contiguous(),
+                          ascending_thresholds(num_points, lo, hi,
+                                               real.device),
+                          out, patch_size)
+        return torch.mean(out, dim=0)
 
 
 spatial_ks.launches = 0

@@ -18,7 +18,7 @@ from windtpu_torch.parallel.distributed import agree, replicate_to_mesh
 from windtpu_torch.train import checkpoint as ckpt
 from windtpu_torch.train.state import GANTrainState, create_train_state
 from windtpu_torch.train.wgan_gp import make_multi_train_step, make_train_step
-from windtpu_torch.utils.logging import MetricsLogger, profile_region
+from windtpu_torch.utils.logging import MetricsLogger, profile_region, span
 
 
 def train(
@@ -136,7 +136,9 @@ def train(
         # when it is landed on exactly (k need not divide the cadence).
         if (prev // log_every != local_step // log_every
                 or local_step == this_k):
-            metrics = {key: float(v) for key, v in metrics.items()}
+            # The host waits here for the step's last work on the device.
+            with span("loop.readout"):
+                metrics = {key: float(v) for key, v in metrics.items()}
             now = time.perf_counter()
             metrics["steps_per_sec"] = (
                 1.0 if local_step == this_k
@@ -155,10 +157,12 @@ def train(
         if (cfg.checkpoint_dir and checkpoint_every and lead
                 and prev // checkpoint_every
                 != local_step // checkpoint_every):
-            ckpt.save_checkpoint(cfg.checkpoint_dir, state)
+            with span("loop.checkpoint"):
+                ckpt.save_checkpoint(cfg.checkpoint_dir, state)
     profiling.close()  # num_steps may end inside the trace window
     if cfg.checkpoint_dir and lead:
-        ckpt.save_checkpoint(cfg.checkpoint_dir, state)
+        with span("loop.checkpoint"):
+            ckpt.save_checkpoint(cfg.checkpoint_dir, state)
     if metrics_logger:
         metrics_logger.close()
     return state, history

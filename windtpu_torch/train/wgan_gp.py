@@ -69,6 +69,7 @@ from windtpu_torch.train.losses import (
     reconstruction_loss,
 )
 from windtpu_torch.train.state import GANTrainState
+from windtpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass
@@ -249,9 +250,11 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
     def train_step(state: GANTrainState, low_res, high_res,
                    rng: Optional[torch.Generator] = None, *,
                    draws: Optional[StepDraws] = None):
-        low_res, high_res = _batch(state, cfg, low_res, high_res)
-        draws = step_draws(state, low_res, high_res, rng, draws)
-        return body(state, low_res, high_res, draws)
+        with span("step"):
+            low_res, high_res = _batch(state, cfg, low_res, high_res)
+            with span("step.draws"):
+                draws = step_draws(state, low_res, high_res, rng, draws)
+            return body(state, low_res, high_res, draws)
 
     def body(state, low_res, high_res, draws):
         gen, critic = state.generator, state.discriminator
@@ -262,68 +265,88 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
 
         # ---- critic updates --------------------------------------------
         for it in range(tcfg.n_critic):
-            d = draws.critic[it]
-            with torch.no_grad():
-                fake = gen(low_res, std * d.noise, train=True, group=bn_group)
-                mixed = d.eps * high_res + (1.0 - d.eps) * fake
-            mixed.requires_grad_()
-            # Gradient penalty: the critic differentiated for its image
-            # input, inside the loss that is differentiated for d_params.
-            scores = critic(low_res, mixed, train=True, remat=gp_remat)
-            grads_img, = torch.autograd.grad(scores.sum(), mixed,
-                                             create_graph=not detach)
-            penalty, gp_mean_norm = gradient_penalty_from_grads(
-                grads_img, tcfg.gp_weight)
-            if detach:
-                penalty = penalty.detach()
-            real_in = high_res + std * d.inst_real
-            fake_in = fake + std * d.inst_fake
-            if tcfg.fused_scoring:
-                # One critic call on the doubled batch: the critic has no
-                # cross-sample op, so the scores are those of two calls.
-                both = critic(torch.cat([low_res, low_res]),
-                              torch.cat([real_in, fake_in]), train=True,
-                              remat=d_remat)
-                rs, fs = both[:b], both[b:]
-            else:
-                rs = critic(low_res, real_in, train=True, remat=d_remat)
-                fs = critic(low_res, fake_in, train=True, remat=d_remat)
-            loss = discriminator_loss(rs, fs) + penalty
-            *d_grads, d_loss_val, gp_mean_norm = pmean(
-                _grads_or_zeros(loss, d_params)
-                + [loss.detach(), gp_mean_norm.detach()], group)
-            state.d_opt.step(d_grads)
-            d_grad_diag = _tensor_mean_sq(d_grads)
+            with span("step.critic"):
+                d = draws.critic[it]
+                with span("critic.fake"), torch.no_grad():
+                    fake = gen(low_res, std * d.noise, train=True,
+                               group=bn_group)
+                    mixed = d.eps * high_res + (1.0 - d.eps) * fake
+                mixed.requires_grad_()
+                with span("critic.penalty"):
+                    # Gradient penalty: the critic differentiated for its
+                    # image input, inside the loss that is differentiated
+                    # for d_params.
+                    scores = critic(low_res, mixed, train=True,
+                                    remat=gp_remat)
+                    grads_img, = torch.autograd.grad(
+                        scores.sum(), mixed, create_graph=not detach)
+                    penalty, gp_mean_norm = gradient_penalty_from_grads(
+                        grads_img, tcfg.gp_weight)
+                    if detach:
+                        penalty = penalty.detach()
+                with span("critic.score"):
+                    real_in = high_res + std * d.inst_real
+                    fake_in = fake + std * d.inst_fake
+                    if tcfg.fused_scoring:
+                        # One critic call on the doubled batch: the critic
+                        # has no cross-sample op, so the scores are those
+                        # of two calls.
+                        both = critic(torch.cat([low_res, low_res]),
+                                      torch.cat([real_in, fake_in]),
+                                      train=True, remat=d_remat)
+                        rs, fs = both[:b], both[b:]
+                    else:
+                        rs = critic(low_res, real_in, train=True,
+                                    remat=d_remat)
+                        fs = critic(low_res, fake_in, train=True,
+                                    remat=d_remat)
+                    loss = discriminator_loss(rs, fs) + penalty
+                with span("critic.backward"):
+                    # The penalty's double backward runs here.
+                    *d_grads, d_loss_val, gp_mean_norm = pmean(
+                        _grads_or_zeros(loss, d_params)
+                        + [loss.detach(), gp_mean_norm.detach()], group)
+                with span("critic.adam"):
+                    state.d_opt.step(d_grads)
+                    d_grad_diag = _tensor_mean_sq(d_grads)
 
         # ---- generator update ------------------------------------------
-        fake = gen(low_res, std * draws.gen_noise, train=True,
-                   group=bn_group, remat=g_remat)
-        g_adv = g_reco = g_sharp = zero
-        if tcfg.adversarial_coefficient > 0:   # 0 removes the critic call
-            scores = critic(low_res, fake, train=True, remat=d_remat)
-            g_adv = (tcfg.adversarial_coefficient
-                     * generator_adversarial_loss(scores))
-        if reco_fn is not None:
-            g_reco = reco_fn(low_res[..., :2], fake)
-        if tcfg.sharpness_coefficient > 0:
-            g_sharp = tcfg.sharpness_coefficient * highpass_energy_ratio_loss(
-                fake, high_res, sigma=tcfg.sharpness_sigma,
-                group=bn_group)
-        g_loss = g_adv + g_reco + g_sharp
-        *g_grads, g_loss, g_adv, g_reco, g_sharp = pmean(
-            _grads_or_zeros(g_loss, g_params)
-            + [g_loss.detach(), g_adv.detach(), g_reco.detach(),
-               g_sharp.detach()], group)
-        if pmean_step:
-            # BatchNorm's running statistics moved with each rank's own
-            # batch; the moving average is linear in the batch statistics,
-            # so one mean at the end equals the global batch's moves.
-            stats = [b for m in gen.modules() if isinstance(m, TimeBatchNorm)
-                     for b in (m.bn.mean, m.bn.var)]
-            with torch.no_grad():
-                for buf, mean in zip(stats, pmean(stats, group)):
-                    buf.copy_(mean)
-        state.g_opt.step(g_grads)
+        with span("step.generator"):
+            with span("generator.forward"):
+                fake = gen(low_res, std * draws.gen_noise, train=True,
+                           group=bn_group, remat=g_remat)
+                g_adv = g_reco = g_sharp = zero
+                if tcfg.adversarial_coefficient > 0:   # 0: no critic call
+                    scores = critic(low_res, fake, train=True, remat=d_remat)
+                    g_adv = (tcfg.adversarial_coefficient
+                             * generator_adversarial_loss(scores))
+                if reco_fn is not None:
+                    g_reco = reco_fn(low_res[..., :2], fake)
+                if tcfg.sharpness_coefficient > 0:
+                    g_sharp = (tcfg.sharpness_coefficient
+                               * highpass_energy_ratio_loss(
+                                   fake, high_res,
+                                   sigma=tcfg.sharpness_sigma,
+                                   group=bn_group))
+                g_loss = g_adv + g_reco + g_sharp
+            with span("generator.backward"):
+                *g_grads, g_loss, g_adv, g_reco, g_sharp = pmean(
+                    _grads_or_zeros(g_loss, g_params)
+                    + [g_loss.detach(), g_adv.detach(), g_reco.detach(),
+                       g_sharp.detach()], group)
+                if pmean_step:
+                    # BatchNorm's running statistics moved with each rank's
+                    # own batch; the moving average is linear in the batch
+                    # statistics, so one mean at the end equals the global
+                    # batch's moves.
+                    stats = [b for m in gen.modules()
+                             if isinstance(m, TimeBatchNorm)
+                             for b in (m.bn.mean, m.bn.var)]
+                    with torch.no_grad():
+                        for buf, mean in zip(stats, pmean(stats, group)):
+                            buf.copy_(mean)
+            with span("generator.adam"):
+                state.g_opt.step(g_grads)
 
         metrics = {
             "g_loss": g_loss,
@@ -338,7 +361,7 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
 
         # ---- metric recompute, train=False, on the updated parameters --
         if tcfg.compute_metrics:
-            with torch.no_grad():
+            with span("step.eval"), torch.no_grad():
                 hr_score = critic(low_res, high_res)
                 fake_e = gen(low_res, std * draws.eval_noise)
                 fk_score = critic(low_res, fake_e)

@@ -7,7 +7,10 @@
   region, written as a Chrome trace (``chrome://tracing``,
   ui.perfetto.dev);
 * :func:`enable_nan_checks` — autograd's anomaly detection, which names
-  the forward op whose backward produced a NaN.
+  the forward op whose backward produced a NaN;
+* :func:`span` — a named range ``windtpu_torch.<name>`` on the profiler's
+  clock around a phase of the program, recorded only while a
+  ``torch.profiler`` trace is being recorded, and free otherwise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import time
 from typing import Optional
 
 import torch
+from torch.autograd.profiler import record_function
 
 
 class MetricsLogger:
@@ -85,3 +89,24 @@ def enable_nan_checks():
     """Development mode: autograd raises at the first backward that
     produces a NaN, naming the forward op it came from."""
     torch.autograd.set_detect_anomaly(True)
+
+
+# Whether a profiler is recording: a C++ flag read, about 0.2 us, where
+# entering and leaving a bare ``record_function`` costs about 12 us.
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming a phase of the program in a profiler trace:
+    ``record_function("windtpu_torch." + name)`` while a ``torch.profiler``
+    trace is being recorded (:func:`profile_region`, or the benchmark's traced
+    runs), one shared no-op context otherwise.  The range then shares the
+    profiler's clock with the device activity, so a trace tells which
+    phase launched a kernel and what the host did while the device
+    waited.  A span is counted by its number in the trace; ``name`` is a
+    literal at the call site.  Do not enclose a ``yield`` or a call back
+    into the caller's code: the caller may stop the profiler there."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return record_function("windtpu_torch." + name)
