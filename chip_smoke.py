@@ -26,7 +26,8 @@ Phases, each of which ends the script with a nonzero exit on failure:
    small domain, on the card (kernels) against the CPU (plain versions);
 5. downscale path: ``windtpu_torch.api.downscale`` of the flagship inference
    domain (24 h, 546 x 756 px, 63 patches) with the bundled generator and
-   texture gate; checks the output and the kernel's launches, times one
+   texture gate; checks the output, the kernel's launches and that the
+   gate's energies were predicted once, on the card; times one
    call after a warm-up, profiles one more call, and times the
    generator's bilinear upsample before and after its NaN repair;
 6. training reference: two WGAN-GP steps in f32 at a small shape on the
@@ -44,7 +45,8 @@ Phases, each of which ends the script with a nonzero exit on failure:
    bf16 within a stated limit), bf16 against f32 transfers, each member
    against a one-member run with its seed; seconds, patches/s and kernel
    launches of each run, the transfers' device times, streamed peak memory
-   at two domain sizes, and the monolithic engine's peak memory at three
+   at two domain sizes, and the monolithic engine's peak memory (after the
+   gate's energy prediction on the card, which must not raise it) at three
    domain sizes, which sets ``api._STREAMING_DEFAULT_BYTES``, and with 4
    members at that threshold;
 9. train entry: ``cli.train_main`` with ``--synthetic`` at its default shape
@@ -768,6 +770,7 @@ def downscale_path_phase() -> dict:
     import torch
 
     from windtpu_torch import api
+    from windtpu_torch.models.texture_gate import predict_log_energy
     from windtpu_torch.ops.convlstm import convlstm_seq
 
     # The flagship inference domain (InferenceConfig): 24 h on 21 x 42
@@ -778,12 +781,17 @@ def downscale_path_phase() -> dict:
     torch.cuda.synchronize()
 
     counts = {"convlstm_seq": 0}
-    convlstm_seq.launches = 0
+    convlstm_seq.launches = predict_log_energy.calls = 0
     t0 = time.perf_counter()
     res = api.downscale(era5, raster, network=network)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts["convlstm_seq"] = convlstm_seq.launches
+    gate = api.last_run_info()["gate"]
+    if gate != "device" or predict_log_energy.calls != 1:
+        fail(f"the gate's energies were predicted on {gate!r} with "
+             f"{predict_log_energy.calls} device predictions; expected "
+             f"'device' and 1")
 
     u, v = res["u10"].values, res["v10"].values
     want = (24, 546 - 4, 756 - 4)
@@ -1165,12 +1173,14 @@ def streaming_path_phase() -> dict:
         info = api.last_run_info()
         want_mode = ("streaming" if extra["streaming"] else "ensemble")
         want_gate = extra.get("texture_gate", True)
+        want_route = (("host" if extra["streaming"] else "device")
+                      if want_gate else None)
         members = extra.get("ensemble_members", 1)
         if (info["mode"] != want_mode or info["texture_gate"] != want_gate
-                or k1 != groups * seq):
+                or info["gate"] != want_route or k1 != groups * seq):
             fail(f"downscale ({name}) ran {info} with {k1} convlstm_seq "
-                 f"launches; expected {want_mode!r}, gate {want_gate} and "
-                 f"{groups * seq}")
+                 f"launches; expected {want_mode!r}, gate {want_gate} "
+                 f"predicted on {want_route!r} and {groups * seq}")
         u = res["u10"].values
         want_shape = ((members,) if members > 1 else ()) + (24, 542, 752)
         if u.shape != want_shape or not np.isfinite(u).all():
@@ -1260,7 +1270,10 @@ def streaming_path_phase() -> dict:
 
 def threshold_measurements(network, icfg) -> None:
     """Peak device memory of the monolithic engine plus the device texture
-    gate at THRESHOLD_DOMAINS against ``api._engine_hbm_bytes``; fails if
+    gate at THRESHOLD_DOMAINS against ``api._engine_hbm_bytes``, the
+    target energies predicted from the device field first, as
+    ``api.predict`` does; fails if that prediction leaves more than its
+    two energies allocated or peaks above the engine and gate after it, if
     the linear fit of the one-member points puts the default threshold's
     peak above THRESHOLD_SHARE of the card's memory, or if the ensemble's
     measured peak is above it."""
@@ -1269,11 +1282,15 @@ def threshold_measurements(network, icfg) -> None:
     from windtpu_torch import api
     from windtpu_torch.infer.engine import make_tiled_predictor
     from windtpu_torch.infer.tiling import plan_tiling
+    from windtpu_torch.models.texture_gate import predict_log_energy
 
     gate = network.texture_gate
-    target = torch.full((2,), 0.5, device="cuda")
     floor = torch.as_tensor(np.asarray(gate["floor"], np.float32),
                             device="cuda")
+    # The first prediction in a process leaves 32 MiB allocated on an
+    # H100 80GB HBM3, the workspace of the MLP's first matmul, which later
+    # calls reuse: make it before measuring.
+    predict_log_energy(gate, torch.ones((24, 96, 96, 3), device="cuda"))
     mcfg = network.cfg.model
     total = torch.cuda.get_device_properties(0).total_memory
     points = []
@@ -1286,6 +1303,13 @@ def threshold_measurements(network, icfg) -> None:
         gens = [torch.Generator(device="cuda").manual_seed(m)
                 for m in range(members)]
         field = torch.randn((24, h, w, 3), generator=gens[0], device="cuda")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        target = torch.exp(predict_log_energy(gate, field))
+        torch.cuda.synchronize()
+        gate_peak = torch.cuda.max_memory_allocated() - base
+        left = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
         plan = plan_tiling(h, w, 24, 96, 24, icfg.overlap_factor)
         pred, _ = make_tiled_predictor(mcfg, icfg, plan, network.generator,
                                        "cuda")(
@@ -1294,7 +1318,8 @@ def threshold_measurements(network, icfg) -> None:
         api._gate_members_on_device(target, floor, pred, members > 1)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - base
+        engine_peak = torch.cuda.max_memory_allocated() - base
+        peak = max(gate_peak, engine_peak)
         est = api._engine_hbm_bytes(24, h, w, 3, 2, members)
         if not bool(torch.isfinite(pred).all()):
             fail(f"monolithic engine at {h} x {w}: output not finite")
@@ -1303,7 +1328,13 @@ def threshold_measurements(network, icfg) -> None:
               f"{w} ({plan.num_patches} patches): {seconds:.2f} s, peak "
               f"device memory above the weights {peak / 2**30:.3f} GiB "
               f"({100 * peak / total:.1f}% of the card), _engine_hbm_bytes "
-              f"{est / 2**30:.3f} GiB, ratio {peak / est:.3f}")
+              f"{est / 2**30:.3f} GiB, ratio {peak / est:.3f}; the energy "
+              f"prediction before it peaked at {gate_peak / 2**30:.3f} GiB "
+              f"(field included) and left {left} bytes")
+        if left > (1 << 20) or gate_peak > engine_peak:
+            fail(f"the gate's energy prediction at {h} x {w} left {left} "
+                 f"bytes allocated and peaked at {gate_peak / 2**30:.3f} "
+                 f"GiB against the engine's {engine_peak / 2**30:.3f} GiB")
         if members == 1:
             points.append((est, peak))
         elif peak > THRESHOLD_SHARE * total:
@@ -1819,8 +1850,10 @@ def time_train_steps(spans) -> dict:
 
 def time_host_gate():
     """Time the host gate's energy prediction (``predict_log_energy_np``,
-    run by ``api.predict`` on every rank) by wrapping it; returns a list
-    whose one entry sums its seconds, and a function that unwraps it."""
+    which ``api.predict`` runs on the streamed path only: a monolithic
+    downscale, on one card or every rank of a mesh, predicts on the card
+    and reads 0 here) by wrapping it; returns a list whose one entry sums
+    its seconds, and a function that unwraps it."""
     from windtpu_torch.models import texture_gate
 
     inner = texture_gate.predict_log_energy_np

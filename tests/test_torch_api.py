@@ -112,6 +112,41 @@ def test_downscale_matches_jax(networks, gate):
     _assert_outputs_close(got, want)
 
 
+@pytest.mark.parametrize("streaming", [False, True])
+def test_gate_predicts_where_the_field_lives(networks, monkeypatch,
+                                             streaming):
+    """The monolithic predict takes the gate's target energies from the
+    device copy of the field, once, and never runs the host twin; the
+    streamed predict keeps the field, and the prediction, on the host."""
+    from windtpu_torch.models import texture_gate as ttg
+
+    _, tnet = networks
+    host_calls = []
+    host = ttg.predict_log_energy_np
+
+    def counted(*args):
+        host_calls.append(args)
+        return host(*args)
+
+    monkeypatch.setattr(ttg, "predict_log_energy_np", counted)
+    device_calls = ttg.predict_log_energy.calls
+    tapi.downscale(*_inputs(tds), network=tnet, noise_std=0.0,
+                   streaming=streaming, device="cpu")
+    info = tapi.last_run_info()
+    assert info["texture_gate"] is True
+    if streaming:
+        assert info["mode"] == "streaming" and info["gate"] == "host"
+        assert len(host_calls) == 1
+        assert ttg.predict_log_energy.calls == device_calls
+    else:
+        assert info["mode"] == "single" and info["gate"] == "device"
+        assert host_calls == []
+        assert ttg.predict_log_energy.calls == device_calls + 1
+    tapi.downscale(*_inputs(tds), network=tnet, noise_std=0.0,
+                   streaming=streaming, texture_gate=False, device="cpu")
+    assert tapi.last_run_info()["gate"] is None
+
+
 def test_cli_matches_jax(networks, tmp_path, monkeypatch):
     from windtpu import cli as jcli
     from windtpu_torch import cli as tcli

@@ -148,8 +148,9 @@ def test_a_traced_downscale_names_its_phases(monkeypatch):
     np.testing.assert_array_equal(traced, plain)   # bitwise, NaNs too
     counts = _span_counts(prof)
     assert counts == {
-        "downscale": 1, "downscale.template": 1, "predict.gate": 1,
-        "gate.features": 1, "gate.mlp": 1, "predict.engine": 1,
+        "downscale": 1, "downscale.template": 1, "predict.upload": 1,
+        "predict.gate": 1, "gate.features": 1, "gate.mlp": 1,
+        "predict.engine": 1,
         "engine.plan": 1, "engine.stats": 1, "engine.group": n_groups,
         "engine.overlap_mean": 1, "predict.gate_apply": 1,
         "predict.readback": 1, "predict.assemble": 1,

@@ -208,7 +208,10 @@ def test_predict_matches_jax(api_setup, members, stream):
                        streaming=stream, texture_gate=gate, device="cpu")
     mode = "streaming" if stream else ("ensemble" if members > 1
                                        else "single")
-    assert tapi.last_run_info() == japi.last_run_info() == {
+    # The port also says where the gate predicted its target energies.
+    route = "host" if stream else "device"
+    assert tapi.last_run_info() == {**japi.last_run_info(), "gate": route}
+    assert japi.last_run_info() == {
         "mode": mode, "mesh_axes": None, "ensemble_sharded": False,
         "n_devices": 1, "texture_gate": True}
     dims = (("member",) if members > 1 else ()) + ("time", "lat_1", "lon_1")

@@ -137,6 +137,44 @@ def test_device_gate_matches_jax(kind):
     np.testing.assert_allclose(got, split, rtol=1e-4, atol=1e-4)
 
 
+def _lowpass_hp_energy(field):
+    """The high-pass energy as fft2, Gaussian, ifft2 and the mean square
+    of the difference: the form the power-spectrum one replaced."""
+    g = ttg._gauss_multiplier(field.shape[-2], field.shape[-1], field.device)
+    hp = field - torch.fft.ifft2(torch.fft.fft2(field) * g).real
+    return torch.mean(hp * hp, dim=(-3, -2, -1))
+
+
+# Sides that are not powers of two: 26 x 3 by 18 x 4 ERA5 cells, and an
+# odd width, whose rfft2 has no Nyquist column.
+ODD_SIDES = [(6, 78, 72), (6, 78, 73)]
+
+
+@pytest.mark.parametrize("shape", ODD_SIDES)
+def test_power_spectrum_hp_energy_equals_the_lowpass_form(shape):
+    low = torch.from_numpy(_low(5, shape))
+    for c in range(3):
+        np.testing.assert_allclose(
+            ttg._hp_energy(low[..., c]).numpy(),
+            _lowpass_hp_energy(low[..., c]).numpy(), rtol=1e-5, err_msg=c)
+
+
+@pytest.mark.parametrize("kind", ["bundled", "fresh"])
+@pytest.mark.parametrize("shape", ODD_SIDES)
+def test_device_targets_equal_the_host_route(kind, shape):
+    """The target energies api.predict hands the gate: the device route
+    on the monolithic path, the host one on the streamed path."""
+    params = _params(kind)
+    low = _low(6, shape)
+    calls = ttg.predict_log_energy.calls
+    got = torch.exp(ttg.predict_log_energy(params, torch.from_numpy(low)))
+    assert ttg.predict_log_energy.calls == calls + 1
+    assert got.shape == (2,)
+    np.testing.assert_allclose(
+        got.numpy(), np.exp(ttg.predict_log_energy_np(params, low)),
+        rtol=1e-5)
+
+
 def test_fit_loss_gradient_matches_jax():
     """The fit's loss, the mean squared error of predict_log_energy
     against target log energies, differentiated for w1..b3 on both

@@ -238,9 +238,11 @@ def test_downscale_on_a_mesh_equals_single_device(runs, world, members):
             {"mode": "ensemble+tile",
              "mesh_axes": {"data": world // members, "ensemble": members},
              "ensemble_sharded": True})
+    # Every rank predicts the gate's energies on its own device.
     for info in infos:
         assert info[str(members)] == {**want, "n_devices": world,
-                                      "texture_gate": True}
+                                      "texture_gate": True,
+                                      "gate": "device"}
 
 
 @pytest.mark.parametrize("world", sorted(CASES))

@@ -124,8 +124,9 @@ def inference_mesh(ensemble_members: int = 1,
 
 # Diagnostics of the most recent predict(): which engine ran ("single",
 # "tile", "ensemble", "ensemble+tile" or "streaming"), the mesh's axes,
-# whether the members were split over ranks, how many ranks ran it, and
-# whether the texture gate was applied.
+# whether the members were split over ranks, how many ranks ran it,
+# whether the texture gate was applied, and where its target energies were
+# predicted ("gate": "device", "host" or None).
 _LAST_RUN = {}
 
 
@@ -147,14 +148,17 @@ def _engine_hbm_bytes(t: int, h: int, w: int, in_ch: int,
 # Streaming kicks in when _engine_hbm_bytes exceeds this many bytes.
 # Measured by chip_smoke.py's streaming path on an NVIDIA H100 80GB HBM3
 # at 700.00 W: the monolithic engine plus the device texture gate peaked
-# at 2.29, 9.15 and 30.52 GiB above the weights for estimates of 0.5, 3
+# at 2.63, 9.15 and 30.52 GiB above the weights for estimates of 0.5, 3
 # and 12 GiB (24 h square domains), 2.54x the estimate at 12 GiB; the fit
-# 2.43 x estimate + 1.4 GiB reaches the card's 79.2 GiB at about 32 GiB.
+# 2.41 x estimate + 1.6 GiB reaches the card's 79.2 GiB at about 32 GiB.
 # The default is the largest measured fit, 12 GiB: under 40% of the card.
 # With 4 members at that threshold (2590 x 2590, 11.995 GiB, one 64-patch
-# forward per group, the gate one member at a time) the peak was 19.06
-# GiB, 1.59x the estimate.  chip_smoke.py measures all four points again
-# on every run.  Override with WINDTPU_STREAMING_BYTES.
+# forward per group, the gate one member at a time) the peak was 20.32
+# GiB, 1.69x the estimate.  The gate's energy prediction on the card runs
+# before the engine and frees its buffers first; it peaked at 0.54, 3.20,
+# 12.81 and 5.12 GiB at those points, field included, so it does not set
+# the peak.  chip_smoke.py measures all four points again on every run.
+# Override with WINDTPU_STREAMING_BYTES.
 _STREAMING_DEFAULT_BYTES = 12 << 30
 
 
@@ -206,8 +210,9 @@ def predict(
     count) exceed ``_streaming_threshold()``; True forces it, False
     forbids it.  ``texture_gate``: "auto"/True use the network's
     calibration, False disables the gate, a dict or ``.npz`` path
-    overrides it; it runs where the stitched canvas lives (on the device
-    for the monolithic engine, in host memory for streaming).
+    overrides it; it runs where the field and the stitched canvas live:
+    on the device for the monolithic engine (the target energies from
+    the one device copy of the field), in host memory for streaming.
 
     ``mesh``: "auto" builds :func:`inference_mesh` when a process group of
     more than one rank exists, else runs on one device; a
@@ -248,17 +253,6 @@ def predict(
     elev_t = np.broadcast_to(elev, u10.shape)
     field = np.stack([u10, v10, elev_t], axis=-1)  # (T, lat, lon, 3)
 
-    gate_target = gate_floor = None
-    if gate_params is not None:
-        from windtpu_torch.models.texture_gate import predict_log_energy_np
-
-        # Host side: a dozen intensive statistics of the host-resident
-        # input; only the two target energies go to the device.
-        with span("predict.gate"):
-            gate_target = np.exp(predict_log_energy_np(
-                gate_params, field)).astype(np.float32)
-        gate_floor = np.asarray(gate_params["floor"], np.float32)
-
     t_total, h, w = field.shape[:3]
     plan = plan_tiling(h, w, t_total, icfg.image_size, icfg.sequence_length,
                        overlap_factor)
@@ -277,15 +271,28 @@ def predict(
                   "using the host-streaming engine")
     members = (dict(ensemble_generators=seeds) if member_axis
                else dict(generator=seed))
+    # The gate predicts its two target energies where the field lives: on
+    # the host for streaming, else on the device copy the engine reads.
+    gate_route = None
+    if gate_params is not None:
+        gate_route = "host" if streaming else "device"
+        gate_floor = np.asarray(gate_params["floor"], np.float32)
     if streaming:
         from windtpu_torch.infer.streaming import downscale_field_streaming
 
+        if gate_route:
+            from windtpu_torch.models.texture_gate import \
+                predict_log_energy_np
+
+            with span("predict.gate"):
+                gate_target = np.exp(predict_log_energy_np(
+                    gate_params, field)).astype(np.float32)
         with span("predict.engine"):
             pred, _ = downscale_field_streaming(
                 network.generator, field, mcfg, icfg, plan=plan, device=dev,
                 **members)
         pred = _trim_canvas(pred, plan, icfg)
-        if gate_params is not None:
+        if gate_route:
             from windtpu_torch.models.texture_gate import \
                 apply_gate_targeted_np
 
@@ -301,18 +308,29 @@ def predict(
                             and "ensemble" in mesh.axis_names
                             and ensemble_members
                             % mesh.axis_size("ensemble") == 0)
+        with span("predict.upload"):
+            # Pageable, as the engine's own upload; the engine takes this
+            # tensor as it is, so the field crosses the bus once.
+            field = torch.as_tensor(field, dtype=torch.float32, device=dev)
+        if gate_route:
+            from windtpu_torch.models.texture_gate import predict_log_energy
+
+            # Only the two energies remain, on the device: no read-back,
+            # and the features' buffers are freed before the canvases.
+            with span("predict.gate"):
+                gate_target = torch.exp(predict_log_energy(gate_params,
+                                                           field))
         with span("predict.engine"):
             pred, _ = downscale_field(network.generator, field, mcfg, icfg,
                                       plan=plan, device=dev, mesh=mesh,
                                       **members)
         pred = _trim_canvas(pred, plan, icfg)
-        if gate_params is not None:
+        if gate_route:
             # On the whole canvas of every rank, after the all-reduces.
             with span("predict.gate_apply"):
                 _gate_members_on_device(
-                    torch.as_tensor(gate_target, device=dev),
-                    torch.as_tensor(gate_floor, device=dev), pred,
-                    member_axis)
+                    gate_target, torch.as_tensor(gate_floor, device=dev),
+                    pred, member_axis)
         with span("predict.readback"):
             pred = pred.cpu().numpy()
         tile_parallel = mesh is not None and mesh.axis_size("data") > 1
@@ -324,7 +342,7 @@ def predict(
         mode=mode, mesh_axes=None if mesh is None else mesh.shape,
         ensemble_sharded=ensemble_sharded,
         n_devices=1 if mesh is None else mesh.size,
-        texture_gate=gate_params is not None)
+        texture_gate=gate_params is not None, gate=gate_route)
     with span("predict.assemble"):
         return _assemble_output(pred, member_axis, plan, icfg, time_vals,
                                 lat, lon, ensemble_members)

@@ -12,10 +12,13 @@ Two halves, as in the JAX package:
   :func:`apply_gate_targeted`, which gates the stitched canvas toward
   energies predicted elsewhere, where the canvas already lives;
 * host (numpy): the energy prediction from a dozen intensive statistics of
-  the input field (:func:`predict_log_energy_np`, what ``api.predict``
-  runs), and the whole gate on a host canvas
-  (:func:`apply_gate_targeted_np`) — copies of the JAX package's numpy
-  twins.
+  the input field (:func:`predict_log_energy_np`), and the whole gate on a
+  host canvas (:func:`apply_gate_targeted_np`) — copies of the JAX
+  package's numpy twins.
+
+``api.predict`` predicts where the field lives: :func:`predict_log_energy`
+on the device copy the monolithic engine reads, :func:`predict_log_energy_np`
+on the host field the streaming engine reads.
 
 The band split is the spectral Gaussian of sigma = 7 px; the gain solves
 E(s) = a + 2 b s + c s^2 = max(target, floor) and is clipped to
@@ -61,18 +64,22 @@ def _param(params: Params, key: str, like: torch.Tensor) -> torch.Tensor:
                            device=like.device)
 
 
-def _spectral_lowpass(field: torch.Tensor, sigma: float = SIGMA
-                      ) -> torch.Tensor:
-    """Periodic Gaussian blur over the last two axes."""
-    g = _gauss_multiplier(field.shape[-2], field.shape[-1], field.device,
-                          sigma)
-    return torch.fft.ifft2(torch.fft.fft2(field.float()) * g).real
-
-
 def _hp_energy(field: torch.Tensor) -> torch.Tensor:
-    """Mean squared high-pass content over (T, H, W): the metric."""
-    hp = field - _spectral_lowpass(field)
-    return torch.mean(hp * hp, dim=(-3, -2, -1))
+    """Mean squared high-pass content over (T, H, W): the metric, from the
+    power spectrum as the host twin computes it, mean_x |Hy|^2 =
+    sum_k H(k)^2 |Y_k|^2 / N^2 per frame with H = 1 - G: one rfft2 of the
+    frame stack and no inverse transform."""
+    ny, nx = field.shape[-2], field.shape[-1]
+    h = 1.0 - _gauss_multiplier(ny, nx, field.device)[:, :nx // 2 + 1]
+    w = h * h
+    # rfft2 drops conjugate-symmetric columns; double their weight
+    # (first column and, for even nx, the Nyquist column are unique).
+    w[:, 1:(nx + 1) // 2] *= 2.0
+    spec = torch.fft.rfft2(field.float())
+    power = spec.real.square() + spec.imag.square()
+    del spec
+    per_frame = torch.sum(power * w, dim=(-2, -1)) / float(ny * nx) ** 2
+    return torch.mean(per_frame, dim=-1)
 
 
 def _features(low: torch.Tensor) -> torch.Tensor:
@@ -128,14 +135,23 @@ def init_params(generator: torch.Generator, hidden: int = 32) -> Params:
 
 def predict_log_energy(params: Params, low: torch.Tensor) -> torch.Tensor:
     """Predicted log truth high-pass energy of (..., T, H, W, 3), shape
-    (..., 2), on ``low``'s device; differentiable in the parameters."""
+    (..., 2), on ``low``'s device; differentiable in the parameters.  The
+    features take one channel at a time, so the working set stays a few
+    channel-sized buffers, all freed on return.  Calls are counted in
+    ``predict_log_energy.calls``."""
+    predict_log_energy.calls += 1
     low = torch.as_tensor(low, dtype=torch.float32)
     p = {k: _param(params, k, low) for k in
          ("w1", "b1", "w2", "b2", "w3", "b3", "f_mu", "f_sd")}
-    f = (_features(low) - p["f_mu"]) / p["f_sd"]
-    h = torch.tanh(f @ p["w1"] + p["b1"])
-    h = torch.tanh(h @ p["w2"] + p["b2"])
-    return (h @ p["w3"] + p["b3"])[..., 0]
+    with span("gate.features"):
+        f = (_features(low) - p["f_mu"]) / p["f_sd"]
+    with span("gate.mlp"):
+        h = torch.tanh(f @ p["w1"] + p["b1"])
+        h = torch.tanh(h @ p["w2"] + p["b2"])
+        return (h @ p["w3"] + p["b3"])[..., 0]
+
+
+predict_log_energy.calls = 0
 
 
 def _band_moments(spec: torch.Tensor, g: torch.Tensor):
