@@ -47,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from windtpu_torch.core.mesh import psum
+from windtpu_torch.ops import conv2d_grad
 from windtpu_torch.ops.convlstm import hard_sigmoid
 
 Padding = Union[int, str]
@@ -72,7 +73,11 @@ def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor,
                 padding: Padding = "SAME") -> torch.Tensor:
     """``lax.conv_general_dilated`` with NHWC/HWIO/NHWC dimension numbers.
 
-    ``padding``: an int (symmetric), ``"SAME"`` or ``"VALID"``."""
+    ``padding``: an int (symmetric), ``"SAME"`` or ``"VALID"``.  While
+    autograd records, the convolution is
+    :func:`windtpu_torch.ops.conv2d_grad.conv2d`, whose gradients of every
+    order run on cuDNN's fprop, dgrad and wgrad (the critic's gradient
+    penalty differentiates it twice); otherwise it is ``F.conv2d``."""
     xn = x.permute(0, 3, 1, 2)
     w = kernel.permute(3, 2, 0, 1)
     if padding == "VALID":
@@ -90,7 +95,10 @@ def conv2d_nhwc(x: torch.Tensor, kernel: torch.Tensor,
         pad = (padding, padding)
     else:
         raise ValueError(f"unsupported padding {padding!r}")
-    y = F.conv2d(xn, w, stride=tuple(strides), padding=pad)
+    if torch.is_grad_enabled() and (xn.requires_grad or w.requires_grad):
+        y = conv2d_grad.conv2d(xn, w, strides, pad)
+    else:
+        y = F.conv2d(xn, w, stride=tuple(strides), padding=pad)
     return y.permute(0, 2, 3, 1)
 
 
