@@ -37,8 +37,11 @@ Phases, each of which ends the script with a nonzero exit on failure:
    (batch 2, 96 px, T=24, generator F=128, critic F=16, bf16) with the
    metric suite and the spatial KS on, ``train.loop.train`` for four steps
    after a warm-up step; checks metrics, parameter movement, both kernels'
-   launches per step and the checkpoint, prints seconds per step and peak
-   memory, and profiles one more step;
+   launches per step (K1's through its wrapper: the warm-up step captured
+   the critic updates as a CUDA graph, whose replays launch their K1
+   without it) and the checkpoint, prints seconds per step and peak
+   memory, and profiles one more step, whose trace must hold all five
+   forwards' K1 kernels;
 8. streaming path: ``api.downscale`` of the flagship domain through the
    host-streaming engine, and ensembles of 4 members through both engines;
    streamed against monolithic (f32 within the JAX package's tolerance,
@@ -51,7 +54,8 @@ Phases, each of which ends the script with a nonzero exit on failure:
    members at that threshold;
 9. train entry: ``cli.train_main`` with ``--synthetic`` at its default shape
    (batch 16, 32 px, T=6, F=128) and the spatial KS on; seconds per step,
-   peak memory and both kernels' launches;
+   peak memory, both kernels' launches and the critic graph's one capture
+   and its replays;
 10. prepare path: ``cli.prepare_main topo`` of a DEM over the COSMO-1
     window at 3 arc-seconds (about 22 Mpx, with NaN holes) on the card
     under PyTorch's default TF32 settings and on the CPU, the eight
@@ -99,7 +103,19 @@ Phases, each of which ends the script with a nonzero exit on failure:
     field against the host twin, with both times, and ``apply_gate`` on
     the card against the CPU and the split path); ``profile_region``
     around a flagship downscale, whose trace must hold K1;
-14. one JSON line with the kernels, then the result line.
+14. critic graph: the flagship train step of the benchmark's
+    flagship.train cell (batch 8, 96 px, T=24, F=128/16, bf16, n_critic
+    3, metrics on), four steps whose critic updates run op by op against
+    four whose updates are captured once and replayed (one capture,
+    three replays): seconds per step, peak memory and K1's launches of
+    each, the states both reach, then, under cuDNN's deterministic
+    algorithms, one replayed step against one op-by-op step from the same
+    state, ``CRITIC_GRAPH_HELD`` bitwise, and a second op-by-op step from
+    that state against the first, printed as the control of what is not
+    held;
+15. one JSON line with the kernels and their launches by path, counted
+    where their wrappers launch them (a replayed graph's are not among
+    them), then the result line.
 
 Phase names given as arguments run only those phases (for bring-up); the
 JSON lines are printed only by the full run.  It imports nothing of JAX or
@@ -259,6 +275,15 @@ REMAT_METRIC_TOL, REMAT_STATE_TOL = 1e-3, 1e-6
 # The texture gate's device half against its host twin (complex64 against
 # complex128 FFTs) and the CPU, in log energy and m/s.
 GATE_TOL = 1e-4
+
+# The critic graph phase: a replayed step against the same step op by op,
+# from one state under cuDNN's deterministic algorithms, holds these bitwise:
+# the state's groups (``export_train_state``) that the critic updates write
+# or read back, and the metrics taken before the generator's backward.
+CRITIC_GRAPH_HELD = ("step", "d_params", "d_spectral", "d_opt",
+                     "g_batch_stats", "g_spectral", "d_gradient_pen",
+                     "d_gradient_param", "d_real", "g_loss", "g_disc_loss",
+                     "g_reco_loss", "g_sharp_loss")
 
 KERNELS = [{
     "name": "convlstm_seq",
@@ -961,6 +986,15 @@ def train_step_pair(cfg, feature_fns,
         fail("the card's f32 train steps disagree with the CPU's")
 
 
+def k1_launches(seq: int, steps: int, replays: int, extra: int = 0) -> int:
+    """K1's launches through its wrapper over ``steps`` train steps at
+    n_critic 3: five generator forwards of ``seq`` steps each (the fakes of
+    the three critic updates, the update's, the metrics'), and ``extra``
+    more a step; a replayed graph of the critic updates launches their
+    three without the wrapper, and its capture launches nothing."""
+    return seq * ((5 + extra) * steps - 3 * replays)
+
+
 def training_path_phase() -> dict:
     import torch
 
@@ -970,6 +1004,7 @@ def training_path_phase() -> dict:
     from windtpu_torch.ops.ks import spatial_ks
     from windtpu_torch.train import checkpoint as ckpt
     from windtpu_torch.train import loop
+    from windtpu_torch.train.wgan_gp import critic_graph
     from windtpu_torch.weights import export_flax_variables
 
     # The flagship training shape: batch 2, 96 px, T=24, generator F=128,
@@ -1000,9 +1035,10 @@ def training_path_phase() -> dict:
         # loop.train converts the metrics to floats before this call, so
         # the step's device work has finished here.
         log.append((step, time.perf_counter(), convlstm_seq.launches,
-                    spatial_ks.launches, metrics))
+                    spatial_ks.launches, critic_graph.replays, metrics))
 
     timed_cfg = dataclasses.replace(cfg, checkpoint_dir=str(ckpt_dir))
+    captures, replays = critic_graph.captures, critic_graph.replays
     t0 = time.perf_counter()
     loop.train(timed_cfg, batches[1:1 + TRAIN_STEPS], TRAIN_STEPS,
                state=net.state, log_every=1, log_fn=log_fn)
@@ -1013,24 +1049,31 @@ def training_path_phase() -> dict:
 
     if [entry[0] for entry in log] != list(range(2, 2 + TRAIN_STEPS)):
         fail(f"logged steps {[entry[0] for entry in log]}")
-    last_t, last_k1, last_k2 = t0, 0, 0
-    for step, t, k1, k2, metrics in log:
+    # The warm-up step captured the critic updates; every timed step
+    # replays them.
+    made = (critic_graph.captures - captures, critic_graph.replays - replays)
+    if made != (0, TRAIN_STEPS):
+        fail(f"the timed steps made {made[0]} captures and {made[1]} "
+             f"replays of the critic updates, expected (0, {TRAIN_STEPS})")
+    last_t, last_k1, last_k2, last_r = t0, 0, 0, replays
+    for step, t, k1, k2, r, metrics in log:
         bad = [k for k, v in metrics.items() if not np.isfinite(v)]
         if bad:
             fail(f"step {step}: metrics {bad} are not finite")
         if not 0.0 <= metrics["g_spatial_ks"] <= 1.0:
             fail(f"step {step}: g_spatial_ks {metrics['g_spatial_ks']}")
-        if k1 - last_k1 != 5 * seq or k2 - last_k2 != 1:
+        want = k1_launches(seq, 1, r - last_r)
+        if k1 - last_k1 != want or k2 - last_k2 != 1:
             fail(f"step {step}: convlstm_seq launched {k1 - last_k1} times "
-                 f"(expected 5 generator forwards x {seq} steps) and "
-                 f"spatial_ks {k2 - last_k2} (expected 1)")
+                 f"(expected {want}: {r - last_r} replays of the critic "
+                 f"updates) and spatial_ks {k2 - last_k2} (expected 1)")
         shown = {k: round(metrics[k], 4) for k in (
             "g_loss", "d_loss", "d_gradient_pen", "g_ws_rmse",
             "g_spatial_ks")}
         print(f"train step {step}: {t - last_t:.3f} s, convlstm_seq "
-              f"launches {k1 - last_k1}, spatial_ks launches "
-              f"{k2 - last_k2}, {shown}")
-        last_t, last_k1, last_k2 = t, k1, k2
+              f"launches {k1 - last_k1}, critic graph replays "
+              f"{r - last_r}, spatial_ks launches {k2 - last_k2}, {shown}")
+        last_t, last_k1, last_k2, last_r = t, k1, k2, r
     seconds_per_step = (log[-1][1] - t0) / TRAIN_STEPS
     for name, old in before.items():
         new = export_flax_variables(getattr(net, name))
@@ -1067,7 +1110,18 @@ def training_path_phase() -> dict:
 
     rng = torch.Generator(device="cuda").manual_seed(1)
     extra = batches[1 + TRAIN_STEPS:]
-    profile_device(lambda: net.train_step(*extra[0], rng))
+    # The profiler records the kernels a replayed graph runs, K1's among
+    # them: five forwards' worth, three of them inside the graph.
+    replays, launches = critic_graph.replays, convlstm_seq.launches
+    rows = profile_device(lambda: net.train_step(*extra[0], rng))
+    traced = sum(n for key, _, n in rows if "convlstm_step" in key)
+    print(f"profiled step: {critic_graph.replays - replays} critic graph "
+          f"replays, K1 launches through its wrapper "
+          f"{convlstm_seq.launches - launches}, K1 kernels in the trace "
+          f"{traced if rows else 'not measured'} (expected {5 * seq})")
+    if rows and traced != 5 * seq:
+        fail(f"the profiled step ran {traced} K1 kernels, expected "
+             f"{5 * seq}")
     profile_host(lambda: net.train_step(*extra[1], rng))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return counts
@@ -1391,6 +1445,7 @@ def train_entry_phase() -> dict:
     from windtpu_torch import cli
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.train.wgan_gp import critic_graph
 
     ckpt_root = ROOT / "build" / "chip_smoke_train_main"
 
@@ -1404,19 +1459,27 @@ def train_entry_phase() -> dict:
     walls = {}
     for steps in TRAIN_MAIN_STEPS:
         convlstm_seq.launches = spatial_ks.launches = 0
+        captures, replays = critic_graph.captures, critic_graph.replays
         torch.cuda.reset_peak_memory_stats()
         state, walls[steps], k1 = timed(lambda: run(steps))
         k2 = spatial_ks.launches
+        made = (critic_graph.captures - captures,
+                critic_graph.replays - replays)
         if state.step != steps:
             fail(f"train_main stopped at step {state.step} of {steps}")
         seq = state.generator.config.sequence_length
-        if k1 != 5 * seq * steps or k2 != steps:
+        # A new state: its first step captures the critic updates, the
+        # others replay them.
+        want = k1_launches(seq, steps, steps - 1)
+        if k1 != want or k2 != steps or made != (1, steps - 1):
             fail(f"train_main, {steps} steps: convlstm_seq launched {k1} "
-                 f"times (expected 5 generator forwards x {seq} x {steps}) "
-                 f"and spatial_ks {k2} (expected {steps})")
+                 f"times (expected {want}), spatial_ks {k2} (expected "
+                 f"{steps}), critic graph captures and replays {made} "
+                 f"(expected {(1, steps - 1)})")
         print(f"train_main --synthetic, batch 16 x T=6 x 32 px, F=128, "
               f"{steps} steps: {walls[steps]:.3f} s, convlstm_seq launches "
-              f"{k1}, spatial_ks launches {k2}, peak memory allocated "
+              f"{k1}, critic graph captures {made[0]} and replays "
+              f"{made[1]}, spatial_ks launches {k2}, peak memory allocated "
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     a, b = TRAIN_MAIN_STEPS
     print(f"train_main: {(walls[b] - walls[a]) / (b - a):.4f} s per step "
@@ -1567,6 +1630,7 @@ def prepare_path_phase() -> dict:
     from windtpu_torch.ops import stencil
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.train.wgan_gp import critic_graph
 
     work = ROOT / "build" / "chip_smoke_prepare"
     shutil.rmtree(work, ignore_errors=True)
@@ -1657,17 +1721,18 @@ def prepare_path_phase() -> dict:
     walls, counts = {}, {"convlstm_seq": 0, "spatial_ks": 0}
     for steps in PREPARE_TRAIN_STEPS:
         convlstm_seq.launches = spatial_ks.launches = 0
+        replays = critic_graph.replays
         torch.cuda.reset_peak_memory_stats()
         (state, logged), walls[steps], k1 = timed(lambda: run(steps))
         peak = torch.cuda.max_memory_allocated()
         seq = state.generator.config.sequence_length
         if state.step != steps:
             fail(f"train_main stopped at step {state.step} of {steps}")
-        if k1 != 5 * seq * steps or spatial_ks.launches:
+        want = k1_launches(seq, steps, critic_graph.replays - replays)
+        if k1 != want or spatial_ks.launches:
             fail(f"train_main on prepared days, {steps} steps: "
-                 f"convlstm_seq launched {k1} times (expected 5 generator "
-                 f"forwards x {seq} x {steps}), spatial_ks "
-                 f"{spatial_ks.launches} (expected 0)")
+                 f"convlstm_seq launched {k1} times (expected {want}), "
+                 f"spatial_ks {spatial_ks.launches} (expected 0)")
         reco = logged["g_reco_loss"]
         if not (np.isfinite(reco) and reco > 0
                 and all(np.isfinite(v) for v in logged.values())):
@@ -1889,6 +1954,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
     from windtpu_torch.core.mesh import all_reduce
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.train.wgan_gp import critic_graph
 
     report = {"rank": rank}
     if fault:
@@ -1921,6 +1987,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
             seconds=end - t0, steps_seconds=end - starts[0][0],
             device=str(state.device), backend=dist.get_backend(),
             k1=convlstm_seq.launches, k2=spatial_ks.launches, steps=steps,
+            replays=critic_graph.replays,
             peak_mib=torch.cuda.max_memory_allocated() / 2**20,
             all_reduce_bytes_per_step=all_reduce.bytes / steps,
             all_reduce_calls=len(spans), all_reduce_ms=sum(ms),
@@ -2080,10 +2147,11 @@ def multi_gpu_phase() -> dict:
                   f"spatial_ks {rep['k2']}, all-reduce "
                   f"{rep['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
                   f"step")
-            if rep["k1"] != 5 * seq * MULTI_STEPS or rep["k2"] != MULTI_STEPS:
+            want = k1_launches(seq, MULTI_STEPS, rep["replays"])
+            if rep["k1"] != want or rep["k2"] != MULTI_STEPS:
                 problems.append(
                     f"train_main {backend} rank {rep['rank']}: convlstm_seq "
-                    f"{rep['k1']} (expected {5 * seq * MULTI_STEPS}), "
+                    f"{rep['k1']} (expected {want}), "
                     f"spatial_ks {rep['k2']} (expected {MULTI_STEPS})")
             counts["convlstm_seq"] += rep["k1"]
             counts["spatial_ks"] += rep["k2"]
@@ -2216,11 +2284,12 @@ def multi_card_phase() -> dict:
                     or rep["backend"] != "nccl"):
                 problems.append(f"rank {rep['rank']} of {w} ran on "
                                 f"{rep['device']} ({rep['backend']})")
-            if rep["k1"] != 5 * seq * steps or rep["k2"] != steps:
+            want = k1_launches(seq, steps, rep["replays"])
+            if rep["k1"] != want or rep["k2"] != steps:
                 problems.append(
                     f"train_main nccl rank {rep['rank']} of {w}: "
-                    f"convlstm_seq {rep['k1']} (expected {5 * seq * steps}"
-                    f"), spatial_ks {rep['k2']} (expected {steps})")
+                    f"convlstm_seq {rep['k1']} (expected {want}), "
+                    f"spatial_ks {rep['k2']} (expected {steps})")
             counts["convlstm_seq"] += rep["k1"]
             counts["spatial_ks"] += rep["k2"]
         finals = [states] + ([[dict(np.load(work / name / f"sharded{r}.npz"))
@@ -2387,7 +2456,8 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
     from windtpu_torch.network import WindDownscalingGAN
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
-    from windtpu_torch.train.wgan_gp import draw_step_noise, make_train_step
+    from windtpu_torch.train.wgan_gp import (critic_graph, draw_step_noise,
+                                             make_train_step)
     from windtpu_torch.weights import export_train_state, load_train_state
 
     # Batch 2, 96 px, T=24, F=128/16, n_critic=3, metrics and spatial KS.
@@ -2434,6 +2504,7 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         convlstm_seq.launches = spatial_ks.launches = 0
+        replays = critic_graph.replays
         parts.clear()
         t0 = time.perf_counter()
         _, metrics = step(state, *batch, draws=draws)
@@ -2449,11 +2520,11 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
                    if k.split("/")[0] in ("g_batch_stats", "g_spectral",
                                           "d_spectral")}
         runs[name] = (metrics, written)
-        # The generator's five forwards (n_critic=3, the update, the
-        # metrics) run K1 once per time step each; remat=True runs the
-        # update's forward again in the backward, "save_scans" keeps its
-        # ConvLSTM.
-        want_k1 = (5 + (remat is True)) * seq
+        # remat=True runs the update's forward again in the backward,
+        # "save_scans" keeps its ConvLSTM.  A run with the key of an
+        # earlier one ("False again") replays its graph.
+        want_k1 = k1_launches(seq, 1, critic_graph.replays - replays,
+                              extra=int(remat is True))
         if k1 != want_k1 or k2 != 1:
             fail(f"remat {name}: convlstm_seq launched {k1} times "
                  f"(expected {want_k1}), spatial_ks {k2} (expected 1)")
@@ -2463,9 +2534,12 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
         base_metrics, base_written = runs["False"]
         m_err = relative_errors(metrics, base_metrics)
         s_err = relative_errors(written, base_written)
+        # A replayed graph of the critic updates calls no optimizer step
+        # of the critic's: its peak is the generator update's then.
+        critic = f"{max(mib[:-2]):.1f}" if mib[:-2] else "replayed"
         print(f"remat {name} [{label}]: {seconds:.3f} s per step, peak "
               f"memory allocated {max(mib):.1f} MiB (critic updates "
-              f"{max(mib[:-2]):.1f}, generator update {mib[-2]:.1f}, "
+              f"{critic}, generator update {mib[-2]:.1f}, "
               f"metrics {mib[-1]:.1f}), convlstm_seq launches {k1}, "
               f"spatial_ks {k2}; against remat False: state written in the "
               f"forwards {worst(s_err)}, metrics {worst(m_err)}; relative "
@@ -2573,6 +2647,151 @@ def a13_path_phase() -> dict:
     return counts
 
 
+def critic_graph_phase() -> dict:
+    """The flagship critic updates replayed as one CUDA graph against the
+    same updates op by op (module docstring, phase 14)."""
+    import torch
+
+    from windtpu_torch import api
+    from windtpu_torch.ops.convlstm import convlstm_seq
+    from windtpu_torch.train import wgan_gp
+    from windtpu_torch.train.state import create_train_state
+    from windtpu_torch.weights import export_train_state, load_train_state
+
+    cfg = api.flagship_config()          # batch 8, n_critic 3, metrics on
+    seq, n_critic = cfg.model.sequence_length, cfg.train.n_critic
+    batches = [tuple(torch.from_numpy(a).cuda() for a in pair)
+               for pair in train_batches(cfg, TRAIN_STEPS + 2, seed=6)]
+    gen = torch.Generator().manual_seed(7)
+    draws = [wgan_gp.draw_step_noise(cfg, lo.shape, hi.shape[-1], gen,
+                                     "cuda") for lo, hi in batches]
+    counters = real_graph = wgan_gp.critic_graph
+
+    def op_by_op(state, updates, settings, *args):
+        return updates(state, *args)
+
+    def run(state, graphed, steps):
+        """Steps ``steps`` of the batches on ``state``; seconds, K1
+        launches through its wrapper and the K1 launches expected of each
+        step, the last metrics."""
+        wgan_gp.critic_graph = real_graph if graphed else op_by_op
+        try:
+            step = wgan_gp.make_train_step(cfg)
+            seconds, k1, want = [], [], []
+            for i in steps:
+                torch.cuda.synchronize()
+                launches, replays = convlstm_seq.launches, counters.replays
+                t0 = time.perf_counter()
+                _, metrics = step(state, *batches[i], draws=draws[i])
+                metrics = {k: float(v) for k, v in metrics.items()}
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                k1.append(convlstm_seq.launches - launches)
+                want.append(k1_launches(seq, 1, counters.replays - replays))
+        finally:
+            wgan_gp.critic_graph = real_graph
+        return seconds, (k1, want), metrics
+
+    def gaps(sa, sb, ma, mb):
+        """Each tensor's and metric's gap over its norm, of two exported
+        states and their metrics."""
+        out = {k: float(np.linalg.norm(sa[k] - sb[k].astype(np.float64))
+                        / max(np.linalg.norm(sb[k]), 1e-30)) for k in sb}
+        out.update({k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                    for k in mb})
+        return out
+
+    states = {name: create_train_state(cfg, seed=3, device="cuda")
+              for name in ("op by op", "graph")}
+    results = {}
+    for name, state in states.items():
+        captures, replays = counters.captures, counters.replays
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, (k1, want_k1), metrics = run(state, name == "graph",
+                                              range(TRAIN_STEPS))
+        # A graph's pool stays reserved between replays; what its kernels
+        # write there counts as allocated only while a capture runs.
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        results[name] = metrics
+        made = (counters.captures - captures, counters.replays - replays)
+        print(f"critic graph, {name}: {TRAIN_STEPS} flagship steps (batch "
+              f"8, bf16, n_critic {n_critic}), seconds "
+              f"{[round(t, 4) for t in seconds]}, K1 launches {k1}, peak "
+              f"memory allocated {peak / 1e9:.3f} GB, reserved "
+              f"{reserved / 1e9:.3f} GB, captures {made[0]}, replays "
+              f"{made[1]}, Adam count {state.d_opt.count}")
+        want = (1, TRAIN_STEPS - 1) if name == "graph" else (0, 0)
+        if made != want:
+            fail(f"critic graph, {name}: {made[0]} captures and {made[1]} "
+                 f"replays, expected {want}")
+        if k1 != want_k1:
+            fail(f"critic graph, {name}: K1 launches {k1} per step, "
+                 f"expected {want_k1}")
+        if state.d_opt.count != TRAIN_STEPS * n_critic or int(
+                state.d_opt.count_t) != state.d_opt.count:
+            fail(f"critic graph, {name}: Adam's count {state.d_opt.count}, "
+                 f"on the card {float(state.d_opt.count_t)}")
+    free = gaps(export_train_state(states["graph"]),
+                export_train_state(states["op by op"]), results["graph"],
+                results["op by op"])
+    print(f"critic graph: after {TRAIN_STEPS} free-running steps, default "
+          f"cuDNN, the graphed state against the op-by-op one: worst "
+          f"{worst(free)}, {sum(v == 0 for v in free.values())} of "
+          f"{len(free)} bitwise equal (not held)")
+
+    # One replayed step against one op-by-op step from the same state,
+    # under deterministic algorithms (a new key: one more capture first).
+    # What the critic updates write, and the metrics taken before the
+    # generator's backward, are held bitwise; the generator's update runs
+    # op by op on both sides, and its upsample's backward adds with
+    # atomics, so it is printed, not held, beside the gap of a second
+    # op-by-op step from the same state: the control.
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph, eager = states["graph"], states["op by op"]
+        held = {}
+        for i in (TRAIN_STEPS, TRAIN_STEPS + 1):
+            start = export_train_state(graph)
+            load_train_state(eager, start)
+            replays = counters.replays
+            _, _, held["graph"] = run(graph, True, [i])
+            _, _, held["op by op"] = run(eager, False, [i])
+        replayed = counters.replays == replays + 1
+        first = export_train_state(eager)
+        err = gaps(export_train_state(graph), first, held["graph"],
+                   held["op by op"])
+        load_train_state(eager, start)
+        _, _, again = run(eager, False, [TRAIN_STEPS + 1])
+        control = gaps(export_train_state(eager), first, again,
+                       held["op by op"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    critic_side = {k: v for k, v in err.items()
+                   if k.split("/")[0] in CRITIC_GRAPH_HELD}
+    rest = {k: v for k, v in err.items() if k not in critic_side}
+    rest_control = {k: v for k, v in control.items() if k in rest}
+    unequal = sorted(k for k, v in critic_side.items() if v != 0)
+    unequal_control = sorted(k for k in critic_side if control[k] != 0)
+    print(f"critic graph: one replayed step against one op-by-op step "
+          f"from the same state, deterministic cuDNN: {len(critic_side)} "
+          f"tensors and metrics the critic updates write or read back, "
+          f"{len(unequal)} not bitwise equal {unequal[:5]}; the generator "
+          f"update's {len(rest)}: {sum(v == 0 for v in rest.values())} "
+          f"bitwise equal, worst {worst(rest)} (not held)")
+    print(f"critic graph, control: a second op-by-op step from the same "
+          f"state against the first: of the {len(critic_side)}, "
+          f"{len(unequal_control)} not bitwise equal "
+          f"{unequal_control[:5]}; the generator update's {len(rest)}: "
+          f"{sum(v == 0 for v in rest_control.values())} bitwise equal, "
+          f"worst {worst(rest_control)}")
+    if not replayed or unequal:
+        fail("the replayed critic updates disagree with the op-by-op ones")
+    return {"convlstm_seq": 0}
+
+
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -2597,9 +2816,10 @@ def profile_host(fn) -> None:
         print(f"  {ct * 1e3:9.1f} ms  {name}")
 
 
-def profile_device(fn) -> None:
+def profile_device(fn) -> list:
     """Device time by kernel over one more call, and the device's busy
-    share of the call's wall time."""
+    share of the call's wall time; returns (kernel, ms, count) rows, none
+    where the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2616,11 +2836,12 @@ def profile_device(fn) -> None:
     busy = sum(r[1] for r in rows)
     if not rows:
         print("profile: no device time recorded (not measured)")
-        return
+        return rows
     print(f"profile: wall {wall * 1e3:.1f} ms, device kernels "
           f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% busy)")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:90]}")
+    return rows
 
 
 PHASES = {
@@ -2637,6 +2858,7 @@ PHASES = {
     "multi-GPU path": multi_gpu_phase,
     "multi-card path": multi_card_phase,
     "A13 path": a13_path_phase,
+    "critic graph": critic_graph_phase,
 }
 
 

@@ -39,6 +39,9 @@ from windtpu_torch.train.state import create_train_state
 from windtpu_torch.train.wgan_gp import (
     CriticDraws,
     StepDraws,
+    _critic_inputs,
+    critic_graph,
+    critic_graph_key,
     draw_step_noise,
     make_eval_step,
     make_train_step,
@@ -243,6 +246,112 @@ def test_optimizer_steps_match_optax(name):
     moved = max(float(np.abs(p.detach().numpy() - p0[k]).max())
                 for k, p in params)
     assert moved > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_count_adam_equals_the_float_count_formula(dtype):
+    """Adam takes its bias corrections from its count on the parameters'
+    device; over 50 steps the parameters are bitwise those of the same
+    update with the corrections as host floats of an int count."""
+    gen = torch.Generator().manual_seed(0)
+    p0 = {"a": torch.randn(3, 4, generator=gen, dtype=dtype),
+          "b": torch.randn(5, generator=gen, dtype=dtype)}
+    cfg = TrainConfig()
+    lr, b1, b2, eps = (cfg.d_learning_rate, cfg.adam_b1, cfg.adam_b2,
+                       cfg.adam_eps)
+    params = [(k, torch.nn.Parameter(v.clone())) for k, v in p0.items()]
+    opt = Adam(params, lr, b1, b2, eps)
+    want = {k: v.clone() for k, v in p0.items()}
+    mu = {k: torch.zeros_like(v) for k, v in p0.items()}
+    nu = {k: torch.zeros_like(v) for k, v in p0.items()}
+    for count in range(1, 51):
+        grads = {k: 0.1 * torch.randn(v.shape, generator=gen, dtype=dtype)
+                 for k, v in p0.items()}
+        opt.step([grads[k] for k, _ in params])
+        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+        for k, g in grads.items():
+            mu[k].mul_(b1).add_(g, alpha=1.0 - b1)
+            nu[k].mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            want[k].sub_(lr * (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps))
+        for k, p in params:
+            assert torch.equal(p.detach(), want[k]), (count, k)
+    assert opt.count == 50 and float(opt.count_t) == 50.0
+
+
+def test_optimizer_count_is_an_int_beside_its_tensor():
+    """``count`` stays an int to checkpoints and the loop; setting it, or
+    loading a state, sets the device's copy too, and a step advances
+    both.  RMSprop keeps no count."""
+    named = [("w", torch.nn.Parameter(torch.ones(2, 3)))]
+    opt = Adam(named, 1e-3, 0.5, 0.9, 0.1)
+    for _ in range(3):
+        opt.step([torch.full((2, 3), 0.5)])
+    saved = opt.state_dict()
+    assert isinstance(saved["count"], int) and saved["count"] == 3
+    assert float(opt.count_t) == 3.0
+    other = Adam([("w", torch.nn.Parameter(torch.zeros(2, 3)))], 1e-3, 0.5,
+                 0.9, 0.1)
+    other.load_state_dict(saved)
+    assert other.count == 3 and float(other.count_t) == 3.0
+    assert torch.equal(other.state["mu"][0], opt.state["mu"][0])
+    opt.count = np.int32(7)
+    assert type(opt.count) is int and float(opt.count_t) == 7.0
+    opt.count += 6
+    assert opt.count == 13 and float(opt.count_t) == 13.0
+    opt.step([torch.full((2, 3), 0.5)])
+    assert opt.count == 14 and float(opt.count_t) == 14.0
+    assert opt.tensors()[-1] is opt.count_t
+    rms = RMSprop(named, 5e-5)
+    rms.step([torch.full((2, 3), 0.5)])
+    assert rms.count == 0 and "count" not in rms.state_dict()
+    assert [id(t) for t in rms.tensors()] == [id(t) for t in rms.state["nu"]]
+
+
+def test_cpu_train_step_captures_no_graph():
+    """Off the card the critic updates run op by op: no capture, no
+    replay, no graph kept on the state."""
+    _, tcfg = configs()
+    state = create_train_state(tcfg, device="cpu")
+    captures, replays = critic_graph.captures, critic_graph.replays
+    step = make_train_step(tcfg)
+    for seed in (1, 2):
+        step(state, *batch(seed), torch.Generator().manual_seed(seed))
+    assert (critic_graph.captures, critic_graph.replays) == (captures,
+                                                             replays)
+    assert state.critic_graph is None
+    assert state.d_opt.count == 2 * tcfg.train.n_critic
+
+
+def test_graph_key_follows_the_state_tensors_and_the_batch():
+    """A graph of the critic updates is keyed on the batch's shapes, the
+    step's settings and the addresses of the state's tensors: an in-place
+    load keeps the key, a new state, a replaced tensor, another shape or
+    another setting changes it."""
+    _, tcfg = configs()
+    state = create_train_state(tcfg, device="cpu")
+    low, high = (torch.from_numpy(a) for a in batch(seed=1))
+    critic = draw_step_noise(tcfg, low.shape, high.shape[-1],
+                             torch.Generator().manual_seed(0), "cpu").critic
+    settings = (2, 100.0, 0.1, False, False, False, True)
+
+    def key(state=state, low=low, high=high, settings=settings):
+        return critic_graph_key(state, settings,
+                                _critic_inputs(low, high, critic))
+
+    first = key()
+    assert key() == first
+    for net in (state.generator, state.discriminator):
+        net.load_state_dict({k: v.clone() for k, v in
+                             net.state_dict().items()})
+    state.d_opt.load_state_dict(state.d_opt.state_dict())
+    state.d_opt.count = 5
+    assert key() == first
+    assert key(low=low[:1], high=high[:1]) != first
+    assert key(settings=settings[:-1] + (False,)) != first
+    assert key(state=create_train_state(tcfg, device="cpu")) != first
+    p = state.discriminator.score_dense.dense.kernel
+    p.data = p.data.clone()
+    assert key() != first
 
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape", "slot"])

@@ -264,7 +264,9 @@ def launch_sequence(entry, zx: torch.Tensor, rk: torch.Tensor,
 def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
                      hard_sig: bool) -> torch.Tensor:
     """The sequence with the tile the route's rule picks for the shape; the
-    T launches are counted in ``convlstm_seq.launches``."""
+    T launches are counted in ``convlstm_seq.launches``.  While a CUDA graph
+    captures the stream nothing runs, so nothing is counted: the graph's
+    replays launch K1 without this wrapper."""
     entry = bind("convlstm", "windtpu_convlstm_seq", _SEQ_ARGTYPES)
     b, t, h, w, f4 = zx.shape
     f = f4 // 4
@@ -274,7 +276,8 @@ def _launch_sequence(zx: torch.Tensor, rk: torch.Tensor,
     else:
         bm, bj, cluster = F32_TILES[choose_tile_f32(b * h * w, f, sms)]
     y = launch_sequence(entry, zx, rk, hard_sig, bm, bj, cluster)
-    convlstm_seq.launches += t
+    if not torch.cuda.is_current_stream_capturing():
+        convlstm_seq.launches += t
     return y
 
 

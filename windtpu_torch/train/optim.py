@@ -6,6 +6,13 @@ They take the gradients as an argument (the train step differentiates with
 ``torch.autograd.grad`` for explicit inputs and never fills ``.grad``), and
 their state is explicit: slot tensors keyed by parameter name, so it can be
 carried across from, and compared with, an optax state.
+
+Adam's update count lives twice: as an int on the host (``count``, what
+checkpoints, ``state_dict`` and the loop read) and as a float64 tensor on
+the parameters' device (``count_t``), which the step advances in place and
+takes its bias corrections from.  So a CUDA graph of steps (the train
+step's critic updates, ``train/wgan_gp.py``) replays them with the count
+moving on the device; the graph's owner keeps the host's count.
 """
 
 from __future__ import annotations
@@ -22,15 +29,20 @@ from windtpu_torch.core.config import TrainConfig
 class _Optimizer:
     slots: Tuple[str, ...] = ()
     has_count = False
+    count = 0
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]]):
         named = list(named_params)
         self.names: List[str] = [n for n, _ in named]
         self.params: List[nn.Parameter] = [p for _, p in named]
-        self.count = 0
         self.state: Dict[str, List[torch.Tensor]] = {
             slot: [torch.zeros_like(p) for p in self.params]
             for slot in self.slots}
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer's state, which its step reads and
+        writes."""
+        return [t for slot in self.slots for t in self.state[slot]]
 
     def state_dict(self) -> dict:
         out = {slot: dict(zip(self.names, tensors))
@@ -74,12 +86,32 @@ class Adam(_Optimizer):
                  eps: float):
         super().__init__(named_params)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.count_t = torch.zeros(
+            (), dtype=torch.float64,
+            device=self.params[0].device if self.params else None)
+        self._count = 0
+
+    @property
+    def count(self) -> int:
+        """The updates taken so far."""
+        return self._count
+
+    @count.setter
+    def count(self, value) -> None:
+        self._count = int(value)
+        self.count_t.fill_(self._count)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return super().tensors() + [self.count_t]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
+        self._count += 1
+        self.count_t.add_(1)
+        # float64 on the device, as the host's floats were: each division
+        # rounds them to the moments' dtype.
+        c1 = 1.0 - torch.pow(self.b1, self.count_t)
+        c2 = 1.0 - torch.pow(self.b2, self.count_t)
         for p, g, mu, nu in zip(self.params, grads, self.state["mu"],
                                 self.state["nu"]):
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)

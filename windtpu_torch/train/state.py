@@ -1,11 +1,13 @@
 """Training state (counterpart of ``windtpu/train/state.py``): both
 networks with their mutable statistics, both optimizers and the step
-count.  The train step updates it in place."""
+count.  The train step updates it in place.  On a card it also keeps the
+CUDA graph of the step's critic updates (``train/wgan_gp.critic_graph``),
+which reads and writes the state's own tensors."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -26,6 +28,8 @@ class GANTrainState:
     g_opt: optim._Optimizer
     discriminator: Discriminator
     d_opt: optim._Optimizer
+    critic_graph: Any = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
     @property
     def device(self) -> torch.device:

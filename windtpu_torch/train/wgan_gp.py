@@ -46,11 +46,19 @@ data-parallel semantics:
 Both average with explicit all-reduces (``core.mesh.pmean``): DDP's
 ``broadcast_buffers`` would copy rank 0's BatchNorm statistics instead of
 averaging them.
+
+On one card without a mesh the ``n_critic`` critic updates, some ten
+thousand small launches each at the flagship's size, run as one CUDA graph
+(:func:`critic_graph`): the first step of a shape runs them and captures
+them, later steps copy their batch and draws in and replay.  Every other
+step (on the CPU, or on a mesh, whose all-reduces sit inside the updates)
+runs them op by op.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -192,6 +200,104 @@ def _rows(draws: StepDraws, start: int, size: int) -> StepDraws:
         gen_noise=cut(draws.gen_noise), eval_noise=cut(draws.eval_noise))
 
 
+def _critic_inputs(low_res, high_res,
+                   critic: Sequence[CriticDraws]) -> List[torch.Tensor]:
+    """The critic updates' tensor inputs laid end to end."""
+    return [low_res, high_res] + [getattr(d, f.name) for d in critic
+                                  for f in dataclasses.fields(d)]
+
+
+def _critic_args(inputs: Sequence[torch.Tensor], n: int):
+    """(low_res, high_res, critic draws) back from :func:`_critic_inputs`."""
+    k = len(dataclasses.fields(CriticDraws))
+    draws = [CriticDraws(*inputs[2 + i * k:2 + (i + 1) * k])
+             for i in range(n)]
+    return inputs[0], inputs[1], draws
+
+
+def critic_graph_key(state: GANTrainState, settings: tuple,
+                     inputs: Sequence[torch.Tensor]) -> tuple:
+    """What a graph of the critic updates holds fixed besides its code: the
+    inputs' device, shapes and dtypes, the step's ``settings``, the
+    algorithm choices of cuDNN and cuBLAS, and, by address, every tensor
+    of the state that the updates read or write (both networks'
+    parameters and buffers, the critic optimizer's slots and count).  A
+    load that copies in place keeps the key; a new state or a replaced
+    tensor changes it."""
+    tensors = itertools.chain(
+        state.generator.parameters(), state.generator.buffers(),
+        state.discriminator.parameters(), state.discriminator.buffers(),
+        state.d_opt.tensors())
+    backends = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.are_deterministic_algorithms_enabled())
+    return (inputs[0].device, tuple((t.shape, t.dtype) for t in inputs),
+            settings, backends,
+            tuple((t.data_ptr(), t.requires_grad) for t in tensors))
+
+
+@dataclasses.dataclass
+class _CriticGraph:
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: List[torch.Tensor]     # static, copied into before a replay
+    outputs: Tuple[torch.Tensor, ...]
+
+
+def critic_graph(state: GANTrainState, updates: Callable, settings: tuple,
+                 low_res: torch.Tensor, high_res: torch.Tensor,
+                 critic: Sequence[CriticDraws]):
+    """``updates(state, low_res, high_res, critic)``, the step's critic
+    updates on one card, replayed as one CUDA graph.
+
+    The state keeps one graph, under :func:`critic_graph_key`.  A call
+    with another key runs the updates (a real step, on the stream the
+    capture then uses, so that cuDNN, cuBLAS, K1 and the allocator meet
+    the capture set up), then captures them into the graph's own memory
+    pool; the capture runs nothing, so it leaves the state as it found
+    it.  A call with the same key copies the batch and draws into the
+    graph's inputs, replays it, and returns copies of its outputs, which
+    the next replay overwrites.  The optimizer's count on the host follows
+    the updates that ran: the capture's steps are taken back, a replay's
+    added.  Counters: ``critic_graph.captures``, ``critic_graph.replays``."""
+    inputs = _critic_inputs(low_res, high_res, critic)
+    key = critic_graph_key(state, settings, inputs)
+    held = state.critic_graph
+    if held is not None and held.key == key:
+        with span("step.critic"), span("critic.replay"):
+            for dst, src in zip(held.inputs, inputs):
+                dst.copy_(src)
+            held.graph.replay()
+            out = tuple(t.clone() for t in held.outputs)
+        if state.d_opt.has_count:
+            state.d_opt.count += len(critic)
+        critic_graph.replays += 1
+        return out
+
+    state.critic_graph = None      # its memory goes before the next graph
+    main = torch.cuda.current_stream(low_res.device)
+    side = torch.cuda.Stream(low_res.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = updates(state, low_res, high_res, critic)
+    main.wait_stream(side)
+    static = [torch.empty_like(t) for t in inputs]
+    graph = torch.cuda.CUDAGraph()
+    count = state.d_opt.count
+    with span("critic.capture"), torch.cuda.graph(graph, stream=side):
+        outputs = updates(state, *_critic_args(static, len(critic)))
+    state.d_opt.count = count
+    state.critic_graph = _CriticGraph(key, graph, static, tuple(outputs))
+    critic_graph.captures += 1
+    return out
+
+
+critic_graph.captures = 0
+critic_graph.replays = 0
+
+
 def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                     detach_gp: Optional[bool] = None,
                     mesh: Optional[Mesh] = None, axis: str = "data",
@@ -231,6 +337,10 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
     shard = mesh.axis_index(axis) if mesh is not None else 0
     global_batch = mesh is not None and not pmean_step
     bn_group = group if global_batch else None
+    # What the critic updates read of the configuration: part of their
+    # graph's key.
+    settings = (tcfg.n_critic, tcfg.gp_weight, std, detach, tcfg.remat,
+                tcfg.remat_gp, tcfg.fused_scoring)
 
     def step_draws(state, low_res, high_res, rng, draws):
         b = low_res.shape[0]
@@ -256,17 +366,17 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                 draws = step_draws(state, low_res, high_res, rng, draws)
             return body(state, low_res, high_res, draws)
 
-    def body(state, low_res, high_res, draws):
-        gen, critic = state.generator, state.discriminator
-        g_params, d_params = state.g_opt.params, state.d_opt.params
+    def critic_updates(state, low_res, high_res, critic):
+        """The ``n_critic`` critic updates on the draws ``critic``; returns
+        the last one's (gradient-penalty norm, loss, gradient
+        diagnostic)."""
+        gen, critic_net = state.generator, state.discriminator
+        d_params = state.d_opt.params
         b = low_res.shape[0]
         zero = torch.zeros((), device=state.device)
         gp_mean_norm = d_loss_val = d_grad_diag = zero
-
-        # ---- critic updates --------------------------------------------
-        for it in range(tcfg.n_critic):
+        for d in critic:
             with span("step.critic"):
-                d = draws.critic[it]
                 with span("critic.fake"), torch.no_grad():
                     fake = gen(low_res, std * d.noise, train=True,
                                group=bn_group)
@@ -276,8 +386,8 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                     # Gradient penalty: the critic differentiated for its
                     # image input, inside the loss that is differentiated
                     # for d_params.
-                    scores = critic(low_res, mixed, train=True,
-                                    remat=gp_remat)
+                    scores = critic_net(low_res, mixed, train=True,
+                                        remat=gp_remat)
                     grads_img, = torch.autograd.grad(
                         scores.sum(), mixed, create_graph=not detach)
                     penalty, gp_mean_norm = gradient_penalty_from_grads(
@@ -291,15 +401,15 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                         # One critic call on the doubled batch: the critic
                         # has no cross-sample op, so the scores are those
                         # of two calls.
-                        both = critic(torch.cat([low_res, low_res]),
-                                      torch.cat([real_in, fake_in]),
-                                      train=True, remat=d_remat)
+                        both = critic_net(torch.cat([low_res, low_res]),
+                                          torch.cat([real_in, fake_in]),
+                                          train=True, remat=d_remat)
                         rs, fs = both[:b], both[b:]
                     else:
-                        rs = critic(low_res, real_in, train=True,
-                                    remat=d_remat)
-                        fs = critic(low_res, fake_in, train=True,
-                                    remat=d_remat)
+                        rs = critic_net(low_res, real_in, train=True,
+                                        remat=d_remat)
+                        fs = critic_net(low_res, fake_in, train=True,
+                                        remat=d_remat)
                     loss = discriminator_loss(rs, fs) + penalty
                 with span("critic.backward"):
                     # The penalty's double backward runs here.
@@ -309,6 +419,21 @@ def make_train_step(cfg: GANConfig, feature_fn: Optional[FeatureFn] = None,
                 with span("critic.adam"):
                     state.d_opt.step(d_grads)
                     d_grad_diag = _tensor_mean_sq(d_grads)
+        return gp_mean_norm, d_loss_val, d_grad_diag
+
+    def body(state, low_res, high_res, draws):
+        gen, critic = state.generator, state.discriminator
+        g_params = state.g_opt.params
+        zero = torch.zeros((), device=state.device)
+
+        # ---- critic updates --------------------------------------------
+        if mesh is None and low_res.is_cuda and tcfg.n_critic:
+            gp_mean_norm, d_loss_val, d_grad_diag = critic_graph(
+                state, critic_updates, settings, low_res, high_res,
+                draws.critic)
+        else:
+            gp_mean_norm, d_loss_val, d_grad_diag = critic_updates(
+                state, low_res, high_res, draws.critic)
 
         # ---- generator update ------------------------------------------
         with span("step.generator"):
