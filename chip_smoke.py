@@ -28,8 +28,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
    domain (24 h, 546 x 756 px, 63 patches) with the bundled generator and
    texture gate; checks the output, the kernel's launches and that the
    gate's energies were predicted once, on the card; times one
-   call after a warm-up, profiles one more call, and times the
-   generator's bilinear upsample before and after its NaN repair;
+   call after a warm-up;
 6. training reference: two WGAN-GP steps in f32 at a small shape on the
    card against the same two steps on the CPU, each step from the same
    state and draws, without and with the reconstruction loss;
@@ -40,8 +39,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
    launches per step (K1's through its wrapper: the warm-up step captured
    the critic updates as a CUDA graph, whose replays launch their K1
    without it) and the checkpoint, prints seconds per step and peak
-   memory, and profiles one more step, whose trace must hold all five
-   forwards' K1 kernels;
+   memory;
 8. streaming path: ``api.downscale`` of the flagship domain through the
    host-streaming engine, and ensembles of 4 members through both engines;
    streamed against monolithic (f32 within the JAX package's tolerance,
@@ -89,8 +87,8 @@ Phases, each of which ends the script with a nonzero exit on failure:
     K1 and K2 in every rank.  The flagship ``api.downscale`` at W ranks:
     tile-parallel (within the streaming bf16 limits of one card), 2
     members (data 2 x ensemble 2 at W = 4) and 4 members (ensemble W),
-    each member exactly its one-member run; each rank's wall and host
-    gate share beside one card's;
+    each member exactly its one-member run; each rank's wall beside one
+    card's;
 13. A13 path: one train step at the training path's shape from one saved
     state and one set of draws under each ``TrainConfig.remat`` mode
     (False twice, True, "save_scans" and "d_only" with ``remat_gp``,
@@ -103,17 +101,7 @@ Phases, each of which ends the script with a nonzero exit on failure:
     field against the host twin, with both times, and ``apply_gate`` on
     the card against the CPU and the split path); ``profile_region``
     around a flagship downscale, whose trace must hold K1;
-14. critic graph: the flagship train step of the benchmark's
-    flagship.train cell (batch 8, 96 px, T=24, F=128/16, bf16, n_critic
-    3, metrics on), four steps whose critic updates run op by op against
-    four whose updates are captured once and replayed (one capture,
-    three replays): seconds per step, peak memory and K1's launches of
-    each, the states both reach, then, under cuDNN's deterministic
-    algorithms, one replayed step against one op-by-op step from the same
-    state, ``CRITIC_GRAPH_HELD`` bitwise, and a second op-by-op step from
-    that state against the first, printed as the control of what is not
-    held;
-15. one JSON line with the kernels and their launches by path, counted
+14. one JSON line with the kernels and their launches by path, counted
     where their wrappers launch them (a replayed graph's are not among
     them), then the result line.
 
@@ -135,12 +123,10 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
+from portbench.costs import PEAK_BYTES, PEAK_FLOPS
+from portbench.costs.kernels import k1_bytes, k1_flops, k2_bytes, k2_ops
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_OPS = 67e12          # outside the tensor cores
-PEAK_BYTES = 3.35e12
+ROOT = Path(__file__).resolve().parent
 
 # (B, T, H, W, F) of the generator's K1 on the downscale and training paths.
 MAIN_SHAPE = (16, 24, 24, 24, 128)
@@ -276,15 +262,6 @@ REMAT_METRIC_TOL, REMAT_STATE_TOL = 1e-3, 1e-6
 # complex128 FFTs) and the CPU, in log energy and m/s.
 GATE_TOL = 1e-4
 
-# The critic graph phase: a replayed step against the same step op by op,
-# from one state under cuDNN's deterministic algorithms, holds these bitwise:
-# the state's groups (``export_train_state``) that the critic updates write
-# or read back, and the metrics taken before the generator's backward.
-CRITIC_GRAPH_HELD = ("step", "d_params", "d_spectral", "d_opt",
-                     "g_batch_stats", "g_spectral", "d_gradient_pen",
-                     "d_gradient_param", "d_real", "g_loss", "g_disc_loss",
-                     "g_reco_loss", "g_sharp_loss")
-
 KERNELS = [{
     "name": "convlstm_seq",
     "route": "cuda",
@@ -356,16 +333,12 @@ def convlstm_inputs(shape, dtype, seed: int):
             torch.from_numpy(rk).to("cuda"))
 
 
-def convlstm_bound(shape, itemsize: int):
-    """Least time of one sequence: the T-1 recurrent 3x3 convs (h_{-1} = 0,
-    so step 0 has none) at the peak for their type (bf16 on the tensor
-    cores, f32 outside them) vs zx read once, rk read once, y written
-    once."""
-    b, t, h, w, f = shape
-    flops = 2.0 * b * (t - 1) * h * w * 9 * f * 4 * f
-    nbytes = itemsize * (b * t * h * w * 5 * f + 9 * f * 4 * f)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_OPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+def convlstm_bound(shape, dtype: str):
+    """Least time of one sequence: its operations (``k1_flops``) at the
+    peak for their type (bf16 on the tensor cores, f32 outside them) vs
+    its bytes (``k1_bytes``) at the memory bandwidth."""
+    flops, nbytes = k1_flops(*shape), k1_bytes(*shape, dtype)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
@@ -490,7 +463,7 @@ def convlstm_kernel_phase() -> dict:
         zx, rk = convlstm_inputs(shape, dtype, seed=0)
         library = library_convs(shape, rk, dtype)
         bound_ms, bound_by, flops, nbytes = convlstm_bound(
-            shape, zx.element_size())
+            shape, str(dtype).split(".")[-1])
         ms = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
         library_ms = cuda_ms(library, iters=20)
         ms_again = cuda_ms(lambda: convlstm_seq(zx, rk), iters=20)
@@ -582,7 +555,7 @@ def convlstm_gradient_phase() -> dict:
     rk.requires_grad_()
     both_ms = cuda_ms(lambda: torch.autograd.grad(
         convlstm_seq(zx, rk), (zx, rk), g), iters=10)
-    bound_ms, bound_by, _, _ = convlstm_bound(TRAIN_SHAPE, 2)
+    bound_ms, bound_by, _, _ = convlstm_bound(TRAIN_SHAPE, "bfloat16")
     print(f"convlstm_seq {TRAIN_SHAPE} bf16 (training path): forward "
           f"{forward_ms:.4f} ms, forward + replayed backward {both_ms:.4f} "
           f"ms (backward {both_ms - forward_ms:.4f} ms), forward bound "
@@ -602,15 +575,11 @@ def ks_inputs(shape, seed: int):
 
 
 def ks_bound(shape, patch_size: int, num_points: int):
-    """Least time of one call: each f32 field read once and each KS image
-    written once, vs the running-sum form of the arithmetic on the CUDA
-    cores: per field pair and threshold 2*H*W comparisons, H*W differences,
-    2*OH*W vertical and 2*OH*OW horizontal adds, 2*OH*OW for |.| and max."""
-    b, t, h, w, c = shape
-    n, oh, ow = b * t * c, h - patch_size + 1, w - patch_size + 1
-    ops = float(n) * num_points * (3 * h * w + 2 * oh * w + 4 * oh * ow)
-    nbytes = 4.0 * n * (2 * h * w + oh * ow)
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    """Least time of one call: its operations (``k2_ops``) on the CUDA
+    cores vs its bytes (``k2_bytes``) at the memory bandwidth."""
+    ops = k2_ops(*shape, patch_size, num_points)
+    nbytes = k2_bytes(*shape, patch_size)
+    t_ops, t_bytes = ops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes"), ops, nbytes
 
@@ -716,7 +685,7 @@ def ks_kernel_phase() -> dict:
           f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, yardstick "
           f"(avg_pool2d per threshold, not one call) {yardstick_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} G "
-          f"operations at {PEAK_F32_OPS / 1e12:.0f}e12/s, "
+          f"operations at {PEAK_FLOPS['float32'] / 1e12:.0f}e12/s, "
           f"{nbytes / 1e6:.1f} MB); wrapper at {ops / ms / 1e9:.2f} "
           f"T operations/s")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
@@ -834,55 +803,7 @@ def downscale_path_phase() -> dict:
     print(f"downscale 24 h x 546 x 756 (63 patches): {seconds:.3f} s, "
           f"{63 / seconds:.1f} patches/s, convlstm_seq launches "
           f"{counts['convlstm_seq']}, u10 std {float(np.std(u)):.3f}")
-
-    profile_device(lambda: api.downscale(era5, raster, network=network))
-    profile_host(lambda: api.downscale(era5, raster, network=network))
-    upsample_repair_cost(network.cfg.model, groups)
     return counts
-
-
-def upsample_repair_cost(mcfg, calls: int) -> None:
-    """The generator's bilinear upsample at the downscale path's shape,
-    before the NaN repair (``F.interpolate`` alone) and after it (one NaN
-    reduction per plane and one fill), timed in turns; and the repaired
-    upsample's NaN planes on the card."""
-    import torch
-    import torch.nn.functional as F
-
-    from windtpu_torch.models import layers as L
-
-    inter = min((mcfg.in_channels + mcfg.noise_channels) * 8,
-                mcfg.generator_features)
-    shape = (MAIN_SHAPE[0], mcfg.sequence_length, mcfg.image_size // 2,
-             mcfg.image_size // 2, mcfg.generator_features // 4 + inter)
-    x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
-
-    def before():
-        folded = L._fold(x).permute(0, 3, 1, 2)
-        y = F.interpolate(folded, scale_factor=2, mode="bilinear",
-                          align_corners=False)
-        return L._unfold(y.permute(0, 2, 3, 1), x.shape[0])
-
-    def after():
-        return L.bilinear_upsample_2x(x)
-
-    if not torch.equal(before(), after()):
-        fail("the repaired upsample changed a finite input's output")
-    fns = {"before": before, "after": after}
-    times = {"before": [], "after": []}
-    for name in ("before", "after", "after", "before"):
-        times[name].append(cuda_ms(fns[name], iters=20))
-    b, a = min(times["before"]), min(times["after"])
-    x[3, 5, 7, 9, 11] = float("nan")
-    nan = torch.isnan(after())
-    plane = nan[3, 5, :, :, 11]
-    if not (bool(plane.all()) and int(nan.sum()) == plane.numel()):
-        fail("the upsample's NaN did not fill exactly its (b, t, c) plane")
-    print(f"bilinear upsample {shape} bf16, one call: before the NaN repair "
-          f"{b:.4f} ms ({times['before']}), after {a:.4f} ms "
-          f"({times['after']}), +{100 * (a - b) / b:.1f}%; {calls} calls "
-          f"per downscale: {calls * b:.3f} -> {calls * a:.3f} ms; one NaN "
-          f"fills exactly its plane")
 
 
 def train_batches(cfg, n: int, seed: int):
@@ -1017,7 +938,7 @@ def training_path_phase() -> dict:
             base.train, batch_size=2, compute_metrics=True,
             compute_spatial_ks=True))
     net = WindDownscalingGAN(cfg).load_weights(api.BUNDLED_GENERATOR)
-    batches = train_batches(cfg, 1 + TRAIN_STEPS + 2, seed=0)
+    batches = train_batches(cfg, 1 + TRAIN_STEPS, seed=0)
     seq = cfg.model.sequence_length
 
     loop.train(cfg, batches[:1], 1, state=net.state,
@@ -1107,22 +1028,6 @@ def training_path_phase() -> dict:
           f"memory allocated {peak / 2**20:.0f} MiB, checkpoint "
           f"{Path(latest).name} ({Path(latest).stat().st_size / 2**20:.1f} "
           f"MiB) written and reloaded")
-
-    rng = torch.Generator(device="cuda").manual_seed(1)
-    extra = batches[1 + TRAIN_STEPS:]
-    # The profiler records the kernels a replayed graph runs, K1's among
-    # them: five forwards' worth, three of them inside the graph.
-    replays, launches = critic_graph.replays, convlstm_seq.launches
-    rows = profile_device(lambda: net.train_step(*extra[0], rng))
-    traced = sum(n for key, _, n in rows if "convlstm_step" in key)
-    print(f"profiled step: {critic_graph.replays - replays} critic graph "
-          f"replays, K1 launches through its wrapper "
-          f"{convlstm_seq.launches - launches}, K1 kernels in the trace "
-          f"{traced if rows else 'not measured'} (expected {5 * seq})")
-    if rows and traced != 5 * seq:
-        fail(f"the profiled step ran {traced} K1 kernels, expected "
-             f"{5 * seq}")
-    profile_host(lambda: net.train_step(*extra[1], rng))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return counts
 
@@ -1913,29 +1818,6 @@ def time_train_steps(spans) -> dict:
     return record
 
 
-def time_host_gate():
-    """Time the host gate's energy prediction (``predict_log_energy_np``,
-    which ``api.predict`` runs on the streamed path only: a monolithic
-    downscale, on one card or every rank of a mesh, predicts on the card
-    and reads 0 here) by wrapping it; returns a list whose one entry sums
-    its seconds, and a function that unwraps it."""
-    from windtpu_torch.models import texture_gate
-
-    inner = texture_gate.predict_log_energy_np
-    spent = [0.0]
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return inner(*args, **kwargs)
-        finally:
-            spent[0] += time.perf_counter() - t0
-
-    texture_gate.predict_log_energy_np = timed
-    return spent, lambda: setattr(texture_gate, "predict_log_energy_np",
-                                  inner)
-
-
 def rank_main(job: str, rank: int, world: int, port: str, out: Path,
               backend: str, fault: str = "", steps: int = MULTI_STEPS,
               launch: str = "flags") -> int:
@@ -2025,7 +1907,6 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
         era5, raster = era5_and_dem(21, 42, 24, seed=0)
         network = api.get_network()
         api.downscale(era5, raster, network=network)  # warm-up
-        gate, _ = time_host_gate()
         runs = [("tile", 1), ("ensemble", 2)]
         if job == "downscale_cards":
             runs = [("tile", 1), ("ensemble2", 2),
@@ -2050,7 +1931,6 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             convlstm_seq.launches = all_reduce.bytes = 0
-            gate[0] = 0.0
             t0 = time.perf_counter()
             res = api.downscale(era5, raster, network=network, seed=0,
                                 ensemble_members=members)
@@ -2058,7 +1938,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
             report[name] = dict(
                 seconds=time.perf_counter() - t0, k1=convlstm_seq.launches,
                 peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
-                all_reduce_bytes=all_reduce.bytes, gate_seconds=gate[0],
+                all_reduce_bytes=all_reduce.bytes,
                 info=api.last_run_info(), device=str(network.device))
             np.savez(out / f"{name}{rank}.npz", u10=res["u10"].values,
                      v10=res["v10"].values)
@@ -2350,21 +2230,17 @@ def multi_card_phase() -> dict:
     era5, raster = era5_and_dem(21, 42, 24, seed=0)
     network = api.get_network()
     api.downscale(era5, raster, network=network, seed=0)  # warm-up
-    gate, unwrap = time_host_gate()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tile = api.downscale(era5, raster, network=network, seed=0)
     torch.cuda.synchronize()
-    single_s, single_gate = time.perf_counter() - t0, gate[0]
-    unwrap()
+    single_s = time.perf_counter() - t0
     one = {}
     for m in (2, MEMBERS):
         for s in api.member_seeds(0, m):
             if s not in one:
                 one[s] = api.downscale(era5, raster, network=network, seed=s)
-    print(f"downscale on one card (card 0): {single_s:.3f} s, host gate "
-          f"energy prediction {single_gate:.3f} s "
-          f"({100 * single_gate / single_s:.1f}%)")
+    print(f"downscale on one card (card 0): {single_s:.3f} s")
     for name, members in (("tile", 1), ("ensemble2", 2),
                           (f"ensemble{MEMBERS}", MEMBERS)):
         axes = api.inference_mesh_axes(members, world)
@@ -2376,8 +2252,7 @@ def multi_card_phase() -> dict:
             r = rep[name]
             print(f"downscale {name} rank {rep['rank']} of {world} on "
                   f"{r['device']} (nccl): {r['seconds']:.3f} s (one card "
-                  f"{single_s:.3f} s), host gate {r['gate_seconds']:.3f} s "
-                  f"({100 * r['gate_seconds'] / r['seconds']:.1f}%), peak "
+                  f"{single_s:.3f} s), peak "
                   f"device memory above the weights {r['peak_mib']:.1f} "
                   f"MiB, convlstm_seq {r['k1']}, all-reduce "
                   f"{r['all_reduce_bytes'] / 2**20:.1f} MiB, {r['info']}")
@@ -2647,151 +2522,6 @@ def a13_path_phase() -> dict:
     return counts
 
 
-def critic_graph_phase() -> dict:
-    """The flagship critic updates replayed as one CUDA graph against the
-    same updates op by op (module docstring, phase 14)."""
-    import torch
-
-    from windtpu_torch import api
-    from windtpu_torch.ops.convlstm import convlstm_seq
-    from windtpu_torch.train import wgan_gp
-    from windtpu_torch.train.state import create_train_state
-    from windtpu_torch.weights import export_train_state, load_train_state
-
-    cfg = api.flagship_config()          # batch 8, n_critic 3, metrics on
-    seq, n_critic = cfg.model.sequence_length, cfg.train.n_critic
-    batches = [tuple(torch.from_numpy(a).cuda() for a in pair)
-               for pair in train_batches(cfg, TRAIN_STEPS + 2, seed=6)]
-    gen = torch.Generator().manual_seed(7)
-    draws = [wgan_gp.draw_step_noise(cfg, lo.shape, hi.shape[-1], gen,
-                                     "cuda") for lo, hi in batches]
-    counters = real_graph = wgan_gp.critic_graph
-
-    def op_by_op(state, updates, settings, *args):
-        return updates(state, *args)
-
-    def run(state, graphed, steps):
-        """Steps ``steps`` of the batches on ``state``; seconds, K1
-        launches through its wrapper and the K1 launches expected of each
-        step, the last metrics."""
-        wgan_gp.critic_graph = real_graph if graphed else op_by_op
-        try:
-            step = wgan_gp.make_train_step(cfg)
-            seconds, k1, want = [], [], []
-            for i in steps:
-                torch.cuda.synchronize()
-                launches, replays = convlstm_seq.launches, counters.replays
-                t0 = time.perf_counter()
-                _, metrics = step(state, *batches[i], draws=draws[i])
-                metrics = {k: float(v) for k, v in metrics.items()}
-                torch.cuda.synchronize()
-                seconds.append(time.perf_counter() - t0)
-                k1.append(convlstm_seq.launches - launches)
-                want.append(k1_launches(seq, 1, counters.replays - replays))
-        finally:
-            wgan_gp.critic_graph = real_graph
-        return seconds, (k1, want), metrics
-
-    def gaps(sa, sb, ma, mb):
-        """Each tensor's and metric's gap over its norm, of two exported
-        states and their metrics."""
-        out = {k: float(np.linalg.norm(sa[k] - sb[k].astype(np.float64))
-                        / max(np.linalg.norm(sb[k]), 1e-30)) for k in sb}
-        out.update({k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
-                    for k in mb})
-        return out
-
-    states = {name: create_train_state(cfg, seed=3, device="cuda")
-              for name in ("op by op", "graph")}
-    results = {}
-    for name, state in states.items():
-        captures, replays = counters.captures, counters.replays
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        seconds, (k1, want_k1), metrics = run(state, name == "graph",
-                                              range(TRAIN_STEPS))
-        # A graph's pool stays reserved between replays; what its kernels
-        # write there counts as allocated only while a capture runs.
-        peak = torch.cuda.max_memory_allocated()
-        reserved = torch.cuda.max_memory_reserved()
-        results[name] = metrics
-        made = (counters.captures - captures, counters.replays - replays)
-        print(f"critic graph, {name}: {TRAIN_STEPS} flagship steps (batch "
-              f"8, bf16, n_critic {n_critic}), seconds "
-              f"{[round(t, 4) for t in seconds]}, K1 launches {k1}, peak "
-              f"memory allocated {peak / 1e9:.3f} GB, reserved "
-              f"{reserved / 1e9:.3f} GB, captures {made[0]}, replays "
-              f"{made[1]}, Adam count {state.d_opt.count}")
-        want = (1, TRAIN_STEPS - 1) if name == "graph" else (0, 0)
-        if made != want:
-            fail(f"critic graph, {name}: {made[0]} captures and {made[1]} "
-                 f"replays, expected {want}")
-        if k1 != want_k1:
-            fail(f"critic graph, {name}: K1 launches {k1} per step, "
-                 f"expected {want_k1}")
-        if state.d_opt.count != TRAIN_STEPS * n_critic or int(
-                state.d_opt.count_t) != state.d_opt.count:
-            fail(f"critic graph, {name}: Adam's count {state.d_opt.count}, "
-                 f"on the card {float(state.d_opt.count_t)}")
-    free = gaps(export_train_state(states["graph"]),
-                export_train_state(states["op by op"]), results["graph"],
-                results["op by op"])
-    print(f"critic graph: after {TRAIN_STEPS} free-running steps, default "
-          f"cuDNN, the graphed state against the op-by-op one: worst "
-          f"{worst(free)}, {sum(v == 0 for v in free.values())} of "
-          f"{len(free)} bitwise equal (not held)")
-
-    # One replayed step against one op-by-op step from the same state,
-    # under deterministic algorithms (a new key: one more capture first).
-    # What the critic updates write, and the metrics taken before the
-    # generator's backward, are held bitwise; the generator's update runs
-    # op by op on both sides, and its upsample's backward adds with
-    # atomics, so it is printed, not held, beside the gap of a second
-    # op-by-op step from the same state: the control.
-    torch.backends.cudnn.deterministic = True
-    try:
-        graph, eager = states["graph"], states["op by op"]
-        held = {}
-        for i in (TRAIN_STEPS, TRAIN_STEPS + 1):
-            start = export_train_state(graph)
-            load_train_state(eager, start)
-            replays = counters.replays
-            _, _, held["graph"] = run(graph, True, [i])
-            _, _, held["op by op"] = run(eager, False, [i])
-        replayed = counters.replays == replays + 1
-        first = export_train_state(eager)
-        err = gaps(export_train_state(graph), first, held["graph"],
-                   held["op by op"])
-        load_train_state(eager, start)
-        _, _, again = run(eager, False, [TRAIN_STEPS + 1])
-        control = gaps(export_train_state(eager), first, again,
-                       held["op by op"])
-    finally:
-        torch.backends.cudnn.deterministic = False
-    critic_side = {k: v for k, v in err.items()
-                   if k.split("/")[0] in CRITIC_GRAPH_HELD}
-    rest = {k: v for k, v in err.items() if k not in critic_side}
-    rest_control = {k: v for k, v in control.items() if k in rest}
-    unequal = sorted(k for k, v in critic_side.items() if v != 0)
-    unequal_control = sorted(k for k in critic_side if control[k] != 0)
-    print(f"critic graph: one replayed step against one op-by-op step "
-          f"from the same state, deterministic cuDNN: {len(critic_side)} "
-          f"tensors and metrics the critic updates write or read back, "
-          f"{len(unequal)} not bitwise equal {unequal[:5]}; the generator "
-          f"update's {len(rest)}: {sum(v == 0 for v in rest.values())} "
-          f"bitwise equal, worst {worst(rest)} (not held)")
-    print(f"critic graph, control: a second op-by-op step from the same "
-          f"state against the first: of the {len(critic_side)}, "
-          f"{len(unequal_control)} not bitwise equal "
-          f"{unequal_control[:5]}; the generator update's {len(rest)}: "
-          f"{sum(v == 0 for v in rest_control.values())} bitwise equal, "
-          f"worst {worst(rest_control)}")
-    if not replayed or unequal:
-        fail("the replayed critic updates disagree with the op-by-op ones")
-    return {"convlstm_seq": 0}
-
-
 def profile_host(fn) -> None:
     """Host time by function of the port over one more call (cProfile;
     cumulative seconds, which include the device waits inside them)."""
@@ -2858,7 +2588,6 @@ PHASES = {
     "multi-GPU path": multi_gpu_phase,
     "multi-card path": multi_card_phase,
     "A13 path": a13_path_phase,
-    "critic graph": critic_graph_phase,
 }
 
 

@@ -279,9 +279,10 @@ def test_device_count_adam_equals_the_float_count_formula(dtype):
 
 
 def test_optimizer_count_is_an_int_beside_its_tensor():
-    """``count`` stays an int to checkpoints and the loop; setting it, or
-    loading a state, sets the device's copy too, and a step advances
-    both.  RMSprop keeps no count."""
+    """``count`` is an int to checkpoints and the loop, read from the one
+    device tensor: setting it, or loading a state, fills the tensor, and
+    a step, or an increment on the device as a replayed graph makes,
+    moves it.  RMSprop keeps no count."""
     named = [("w", torch.nn.Parameter(torch.ones(2, 3)))]
     opt = Adam(named, 1e-3, 0.5, 0.9, 0.1)
     for _ in range(3):
@@ -300,6 +301,9 @@ def test_optimizer_count_is_an_int_beside_its_tensor():
     assert opt.count == 13 and float(opt.count_t) == 13.0
     opt.step([torch.full((2, 3), 0.5)])
     assert opt.count == 14 and float(opt.count_t) == 14.0
+    opt.count_t.add_(3)
+    assert type(opt.count) is int and opt.count == 17
+    assert opt.state_dict()["count"] == 17
     assert opt.tensors()[-1] is opt.count_t
     rms = RMSprop(named, 5e-5)
     rms.step([torch.full((2, 3), 0.5)])

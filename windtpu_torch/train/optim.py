@@ -7,12 +7,12 @@ They take the gradients as an argument (the train step differentiates with
 their state is explicit: slot tensors keyed by parameter name, so it can be
 carried across from, and compared with, an optax state.
 
-Adam's update count lives twice: as an int on the host (``count``, what
-checkpoints, ``state_dict`` and the loop read) and as a float64 tensor on
-the parameters' device (``count_t``), which the step advances in place and
-takes its bias corrections from.  So a CUDA graph of steps (the train
+Adam's update count lives once, as a float64 tensor on the parameters'
+device (``count_t``), which the step advances in place and takes its bias
+corrections from.  ``count``, what checkpoints, ``state_dict`` and the
+loop read, is that tensor as an int.  So a CUDA graph of steps (the train
 step's critic updates, ``train/wgan_gp.py``) replays them with the count
-moving on the device; the graph's owner keeps the host's count.
+moving on the device, and ``count`` follows.
 """
 
 from __future__ import annotations
@@ -89,24 +89,21 @@ class Adam(_Optimizer):
         self.count_t = torch.zeros(
             (), dtype=torch.float64,
             device=self.params[0].device if self.params else None)
-        self._count = 0
 
     @property
     def count(self) -> int:
-        """The updates taken so far."""
-        return self._count
+        """The updates taken so far, read from the device."""
+        return int(self.count_t)
 
     @count.setter
     def count(self, value) -> None:
-        self._count = int(value)
-        self.count_t.fill_(self._count)
+        self.count_t.fill_(int(value))
 
     def tensors(self) -> List[torch.Tensor]:
         return super().tensors() + [self.count_t]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        self._count += 1
         self.count_t.add_(1)
         # float64 on the device, as the host's floats were: each division
         # rounds them to the moments' dtype.

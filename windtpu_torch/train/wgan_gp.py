@@ -259,9 +259,10 @@ def critic_graph(state: GANTrainState, updates: Callable, settings: tuple,
     pool; the capture runs nothing, so it leaves the state as it found
     it.  A call with the same key copies the batch and draws into the
     graph's inputs, replays it, and returns copies of its outputs, which
-    the next replay overwrites.  The optimizer's count on the host follows
-    the updates that ran: the capture's steps are taken back, a replay's
-    added.  Counters: ``critic_graph.captures``, ``critic_graph.replays``."""
+    the next replay overwrites.  The optimizer's count lives on the device
+    and follows the updates that ran: the capture records its increments
+    and runs none, a replay runs them.  Counters:
+    ``critic_graph.captures``, ``critic_graph.replays``."""
     inputs = _critic_inputs(low_res, high_res, critic)
     key = critic_graph_key(state, settings, inputs)
     held = state.critic_graph
@@ -271,8 +272,6 @@ def critic_graph(state: GANTrainState, updates: Callable, settings: tuple,
                 dst.copy_(src)
             held.graph.replay()
             out = tuple(t.clone() for t in held.outputs)
-        if state.d_opt.has_count:
-            state.d_opt.count += len(critic)
         critic_graph.replays += 1
         return out
 
@@ -285,10 +284,8 @@ def critic_graph(state: GANTrainState, updates: Callable, settings: tuple,
     main.wait_stream(side)
     static = [torch.empty_like(t) for t in inputs]
     graph = torch.cuda.CUDAGraph()
-    count = state.d_opt.count
     with span("critic.capture"), torch.cuda.graph(graph, stream=side):
         outputs = updates(state, *_critic_args(static, len(critic)))
-    state.d_opt.count = count
     state.critic_graph = _CriticGraph(key, graph, static, tuple(outputs))
     critic_graph.captures += 1
     return out
