@@ -21,7 +21,9 @@ Phases, each of which ends the script with a nonzero exit on failure:
    train_main, its ranks and the prepare path (f32) beside cuDNN's convs,
    and the gradients through its autograd Function.
    K2 (spatial KS): also on identical fields, with NaNs and with values on
-   the thresholds;
+   the thresholds.  The critic's LayerNorm (no TPU kernel: forward,
+   backward and double backward) at every map of the flagship critic and
+   of train_main's, beside ATen's layer norm, and its host time per call;
 4. reference: the flagship network in f32 with the bundled weights on a
    small domain, on the card (kernels) against the CPU (plain versions);
 5. downscale path: ``windtpu_torch.api.downscale`` of the flagship inference
@@ -164,6 +166,22 @@ KS_TRAIN_MAIN, KS_TRAIN_MAIN_ARGS = (16, 6, 32, 32, 2), dict(patch_size=3,
 KS_TRAIN_RANK = (8, 6, 32, 32, 2)
 KS_TRAIN_RANK4 = (4, 6, 32, 32, 2)
 KS_TOL = 1e-6
+# The critic's LayerNorm maps: the flagship train step's penalty call
+# (batch 8, T=24, bf16; 96 px of 16 channels, then the pyramid's 64, 128
+# and 256) and train_main's (batch 16, T=6, f32; 32 px of 16, then 64 and
+# 128).  The first of each is timed beside the plain stages and ATen's.
+LN_MAPS = {"flagship": ([(8, 24, 96, 96, 16), (8, 24, 31, 31, 64),
+                         (8, 24, 9, 9, 128), (8, 24, 2, 2, 256)],
+                        "bfloat16"),
+           "train_main": ([(16, 6, 32, 32, 16), (16, 6, 10, 10, 64),
+                           (16, 6, 2, 2, 128)], "float32")}
+# A kernel's output against its plain stage's on the same card tensors:
+# both round the same f32 arithmetic, summed in another order, once to the
+# output's dtype, so within 2^-7 of the value for bf16 and 2e-5 for f32
+# (the f32 mean and rstd too), plus 2e-5 of the output's largest value for
+# entries left small by cancellation (tests/test_torch_layer_norm.py).
+LN_RTOL = {"bfloat16": 2 ** -7, "float32": 2e-5}
+LN_ATOL = 2e-5
 # The f32 flagship network on the card vs the CPU, output in m/s; and the
 # f32 train steps on the card vs the CPU, relative to max(1, |value|).
 REFERENCE_TOL = 2e-3
@@ -272,6 +290,11 @@ KERNELS = [{
     "route": "cuda",
     "source": "windtpu_torch/ops/csrc/spatial_ks.cu",
     "replaces": "windtpu/ops/pallas_ks.py:97",
+}, {
+    "name": "layer_norm",
+    "route": "cuda",
+    "source": "windtpu_torch/ops/csrc/layer_norm.cu",
+    "replaces": None,
 }]
 
 
@@ -295,7 +318,8 @@ def device_line() -> str:
 def build_all():
     from windtpu_torch.ops._build import build
 
-    sources = {"convlstm_seq": "convlstm", "spatial_ks": "spatial_ks"}
+    sources = {"convlstm_seq": "convlstm", "spatial_ks": "spatial_ks",
+               "layer_norm": "layer_norm"}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         futures = {name: pool.submit(build, source)
                    for name, source in sources.items()}
@@ -317,6 +341,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured as
+    one CUDA graph after a warm-up, the replay timed with CUDA events, so
+    that the host's time per call is not counted."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -693,6 +743,193 @@ def ks_kernel_phase() -> dict:
             "kernel_alone_ms": kernel_ms, "yardstick_ms": yardstick_ms}
 
 
+def layer_norm_bytes(shape, dtype: str, tensors: int) -> int:
+    """Bytes a layer-norm stage moves at ``shape``: ``tensors`` reads and
+    writes of the map (forward 2, backward 3, double backward 5) and the
+    f32 mean and rstd of each row, read or written once."""
+    rows, n = int(np.prod(shape[:-1])), shape[-1]
+    size = 2 if dtype == "bfloat16" else 4
+    return rows * (tensors * n * size + 8)
+
+
+def layer_norm_host_us(fn, iters: int = 300) -> float:
+    """Host microseconds per call of ``fn``, at a map small enough that the
+    card keeps up: the loop's wall time before the synchronise."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / iters
+
+
+def layer_norm_kernel_phase() -> dict:
+    """The critic's LayerNorm kernels (forward, backward, double backward)
+    against their plain stages at every map of LN_MAPS, per output within
+    LN_RTOL and LN_ATOL; each timed on the device's clock alone (a
+    replayed graph of calls) beside its byte bound, and at the first map
+    of each as eager calls too, beside the plain stages and ATen's layer
+    norm (``library_ms``; the port calls it nowhere).  Then the host time
+    of an eager call of ``layer_norm`` against ``F.layer_norm``'s, and
+    what it adds to a replayed train_main step."""
+    import torch
+    import torch.nn.functional as F
+
+    from windtpu_torch.ops import layer_norm as ln
+
+    eps, every = 1e-3, (True, True, True)
+    names = ("y", "mean", "rstd", "dx", "dgamma", "dbeta", "gdy", "gx",
+             "ggamma", "gdy (ggx only)", "gx (ggx only)",
+             "ggamma (ggx only)")
+    out = {"maps": {}, "max_err_ratio": 0.0}
+    for name, (shapes, dtype_name) in LN_MAPS.items():
+        dtype = getattr(torch, dtype_name)
+        for first, shape in zip((True, False, False, False), shapes):
+            g = torch.Generator(device="cuda").manual_seed(70)
+            n = shape[-1]
+            x, dy, ggx = (torch.randn(shape, generator=g, device="cuda")
+                          .to(dtype) for _ in "abc")
+            gamma, beta, ggg, ggb = (
+                (1.0 + 0.3 * torch.randn(n, generator=g, device="cuda"))
+                .to(dtype), *((0.3 * torch.randn(n, generator=g,
+                                                 device="cuda")).to(dtype)
+                              for _ in "abc"))
+            y, mean, rstd = ln._forward(x, gamma, beta, eps, stats=True)
+            got = [y, mean, rstd,
+                   *ln._backward(dy, x, gamma, mean, rstd, every),
+                   *ln._double_backward(dy, x, gamma, mean, rstd, ggx, ggg,
+                                        ggb, every),
+                   *ln._double_backward(dy, x, gamma, mean, rstd, ggx, None,
+                                        None, every)]
+            py, pm, pr = ln.forward_plain(x, gamma, beta, eps)
+            want = [py, pm, pr,
+                    *ln.backward_plain(dy, x, gamma, pm, pr, every),
+                    *ln.double_backward_plain(dy, x, gamma, pm, pr, ggx,
+                                              ggg, ggb, every),
+                    *ln.double_backward_plain(dy, x, gamma, pm, pr, ggx,
+                                              None, None, every)]
+            torch.cuda.synchronize()
+            # Each output's largest |error| over what its limit allows.
+            ratios = []
+            for a, b in zip(got, want):
+                rtol = LN_RTOL[str(a.dtype)[6:]]
+                a, b = a.float(), b.float()
+                allowed = LN_ATOL * float(b.abs().max()) + rtol * b.abs()
+                ratios.append(float(((a - b).abs() / allowed).max()))
+            worst = max(ratios)
+            out["max_err_ratio"] = max(out["max_err_ratio"], worst)
+            print(f"layer_norm {name} {tuple(shape)} {dtype_name}: largest "
+                  f"error over its limit per output ("
+                  + ", ".join(f"{k} {e:.2f}" for k, e in zip(names, ratios))
+                  + ")")
+            if worst > 1.0:
+                fail(f"layer_norm disagrees with its plain stages at "
+                     f"{tuple(shape)} {dtype_name}: "
+                     f"{names[ratios.index(worst)]}")
+
+            dx_only = (True, False, False)
+            stages = {
+                "forward": (2, lambda: ln._forward(x, gamma, beta, eps,
+                                                   True)),
+                "backward": (3, lambda: ln._backward(dy, x, gamma, mean,
+                                                     rstd, dx_only)),
+                "backward with dgamma, dbeta": (
+                    3, lambda: ln._backward(dy, x, gamma, mean, rstd,
+                                            every)),
+                "double backward": (
+                    5, lambda: ln._double_backward(dy, x, gamma, mean, rstd,
+                                                   ggx, None, None, every)),
+            }
+            if first:
+                xg = x.detach().requires_grad_()
+                gg = gamma.detach().requires_grad_()
+                bg = beta.detach().requires_grad_()
+                ref = F.layer_norm(xg, (n,), gg, bg, eps=eps)
+                ref_dx, = torch.autograd.grad(ref, xg, dy, create_graph=True)
+                others = {
+                    "forward": (
+                        lambda: ln.forward_plain(x, gamma, beta, eps),
+                        lambda: torch.ops.aten.native_layer_norm(
+                            x, (n,), gamma, beta, eps)),
+                    "backward": (
+                        lambda: ln.backward_plain(dy, x, gamma, pm, pr,
+                                                  dx_only),
+                        lambda: torch.ops.aten.native_layer_norm_backward(
+                            dy, x, (n,), mean, rstd, gamma, beta,
+                            [True, False, False])),
+                    "backward with dgamma, dbeta": (
+                        lambda: ln.backward_plain(dy, x, gamma, pm, pr,
+                                                  every),
+                        lambda: torch.ops.aten.native_layer_norm_backward(
+                            dy, x, (n,), mean, rstd, gamma, beta,
+                            [True, True, True])),
+                    "double backward": (
+                        lambda: ln.double_backward_plain(
+                            dy, x, gamma, pm, pr, ggx, None, None, every),
+                        lambda: torch.autograd.grad(ref_dx, (xg, gg), ggx,
+                                                    retain_graph=True)),
+                }
+            for stage, (tensors, kernel) in stages.items():
+                nbytes = layer_norm_bytes(shape, dtype_name, tensors)
+                bound = nbytes / PEAK_BYTES * 1e3
+                ms = graph_ms(kernel, iters=20)
+                row = {"ms": ms, "bound_ms": bound}
+                line = (f"layer_norm {name} {tuple(shape)} {stage}: kernel "
+                        f"{ms:.4f} ms, bound {bound:.4f} ms "
+                        f"({nbytes / 1e6:.1f} MB, {100 * bound / ms:.1f}% "
+                        f"of it)")
+                if first:
+                    plain, library = others[stage]
+                    row.update(eager_ms=cuda_ms(kernel, iters=20),
+                               plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                               library_ms=cuda_ms(library, iters=5,
+                                                  warmup=1))
+                    line += (f"; eager calls {row['eager_ms']:.4f} ms, "
+                             f"plain {row['plain_ms']:.4f} ms, library "
+                             f"{row['library_ms']:.4f} ms")
+                print(line)
+                out["maps"][f"{name} {tuple(shape)} {stage}"] = row
+
+    # Host time per eager call, as the generator update (forward with a
+    # graph, backward for the input) and eval (forward without) make
+    # them, on a map the card finishes faster than the host calls.
+    x, gamma, beta = (t.to("cuda") for t in (
+        torch.randn(2, 6, 4, 4, 16), 1.0 + 0.1 * torch.randn(16),
+        0.1 * torch.randn(16)))
+    xg = x.detach().requires_grad_()
+    dy = torch.randn_like(x)
+    host = {}
+    for who, norm in (("layer_norm", lambda t: ln.layer_norm(t, gamma, beta,
+                                                             eps)),
+                      ("F.layer_norm", lambda t: F.layer_norm(
+                          t, (16,), gamma, beta, eps=eps))):
+        y = norm(xg)
+        host[who] = {
+            "forward": layer_norm_host_us(lambda: norm(xg)),
+            "forward, no grad": layer_norm_host_us(
+                torch.no_grad()(lambda: norm(x))),
+            "backward (input)": layer_norm_host_us(
+                lambda: torch.autograd.grad(y, xg, dy, retain_graph=True)),
+        }
+        print(f"{who}: host us per eager call at (2, 6, 4, 4, 16) f32: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in host[who].items()))
+    # A replayed train_main step calls 5 forwards with a graph and 5
+    # backwards (the generator update) and 10 without (eval).
+    calls = {"forward": 5, "backward (input)": 5, "forward, no grad": 10}
+    extra = sum(c * (host["layer_norm"][k] - host["F.layer_norm"][k])
+                for k, c in calls.items())
+    print(f"layer_norm against F.layer_norm: {extra / 1e3:+.3f} ms of host "
+          f"a replayed train_main step ({calls})")
+    out["host_us"] = host
+    out["host_ms_per_train_main_step"] = extra / 1e3
+    return out
+
+
 def era5_and_dem(nlat: int, nlon: int, nt: int, seed: int,
                  lat0: float = 47.0, lon0: float = 5.0):
     """An in-memory ERA5 day on a 0.25 deg grid (latitude descending) and
@@ -907,6 +1144,41 @@ def train_step_pair(cfg, feature_fns,
         fail("the card's f32 train steps disagree with the CPU's")
 
 
+# layer_norm's launches through its wrapper in one train step at n_critic
+# 3, by the critic's image size and dtype, then (remat, remat_gp): (those
+# of the generator update and eval, which every step makes; those of the
+# critic updates, which a replayed graph makes without the wrapper and a
+# capture makes none of).  Counted on the CPU through the plain stages: one
+# launch a forward, a backward one or two (with the gamma and beta sums), a
+# double backward one or two (with the gamma gradient).  Remat runs a
+# critic call's forward again in its backward.  In float32 gamma and beta
+# are the parameters themselves, leaves, whose gradients a backward always
+# computes (ops.conv2d_grad._wanted), so more backwards launch two.
+LN_STEP_LAUNCHES = {
+    (96, "bfloat16"): {(False, False): (20, 129), (True, True): (25, 174),
+                       ("save_scans", True): (25, 174),
+                       ("d_only", True): (25, 174),
+                       ("d_only", False): (25, 144)},
+    (96, "float32"): {(False, False): (25, 144), (True, True): (30, 189),
+                      ("save_scans", True): (30, 189),
+                      ("d_only", True): (30, 189),
+                      ("d_only", False): (30, 159)},
+    (32, "float32"): {(False, False): (20, 114)},
+}
+
+
+def ln_launches(model, steps: int, replays: int, remat=False,
+                remat_gp: bool = False) -> int:
+    """layer_norm's launches through its wrapper over ``steps`` train steps
+    of the critic of ``model`` (a ModelConfig, or train_main's ModelConfig
+    where None), ``replays`` of whose critic updates were replayed graphs
+    (LN_STEP_LAUNCHES)."""
+    key = ((32, "float32") if model is None
+           else (model.image_size, model.compute_dtype))
+    eager, critic = LN_STEP_LAUNCHES[key][(remat, remat_gp)]
+    return eager * steps + critic * (steps - replays)
+
+
 def k1_launches(seq: int, steps: int, replays: int, extra: int = 0) -> int:
     """K1's launches through its wrapper over ``steps`` train steps at
     n_critic 3: five generator forwards of ``seq`` steps each (the fakes of
@@ -923,6 +1195,7 @@ def training_path_phase() -> dict:
     from windtpu_torch.network import WindDownscalingGAN
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.ops.layer_norm import layer_norm
     from windtpu_torch.train import checkpoint as ckpt
     from windtpu_torch.train import loop
     from windtpu_torch.train.wgan_gp import critic_graph
@@ -941,14 +1214,22 @@ def training_path_phase() -> dict:
     batches = train_batches(cfg, 1 + TRAIN_STEPS, seed=0)
     seq = cfg.model.sequence_length
 
+    # The warm-up step runs the critic updates once and captures them.
+    layer_norm.launches = 0
     loop.train(cfg, batches[:1], 1, state=net.state,
                log_fn=lambda step, metrics: None)       # warm-up
     torch.cuda.synchronize()
+    if layer_norm.launches != ln_launches(cfg.model, 1, 0):
+        fail(f"the capturing step launched layer_norm "
+             f"{layer_norm.launches} times, expected "
+             f"{ln_launches(cfg.model, 1, 0)}")
+    print(f"train step 1 (captures the critic updates): layer_norm "
+          f"launches {layer_norm.launches}")
     before = {name: export_flax_variables(getattr(net, name))
               for name in ("generator", "discriminator")}
 
     counts = {"convlstm_seq": 0, "spatial_ks": 0}
-    convlstm_seq.launches = spatial_ks.launches = 0
+    convlstm_seq.launches = spatial_ks.launches = layer_norm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     log = []
 
@@ -956,7 +1237,8 @@ def training_path_phase() -> dict:
         # loop.train converts the metrics to floats before this call, so
         # the step's device work has finished here.
         log.append((step, time.perf_counter(), convlstm_seq.launches,
-                    spatial_ks.launches, critic_graph.replays, metrics))
+                    spatial_ks.launches, layer_norm.launches,
+                    critic_graph.replays, metrics))
 
     timed_cfg = dataclasses.replace(cfg, checkpoint_dir=str(ckpt_dir))
     captures, replays = critic_graph.captures, critic_graph.replays
@@ -966,6 +1248,7 @@ def training_path_phase() -> dict:
     torch.cuda.synchronize()
     counts["convlstm_seq"] = convlstm_seq.launches
     counts["spatial_ks"] = spatial_ks.launches
+    counts["layer_norm"] = layer_norm.launches
     peak = torch.cuda.max_memory_allocated()
 
     if [entry[0] for entry in log] != list(range(2, 2 + TRAIN_STEPS)):
@@ -976,8 +1259,8 @@ def training_path_phase() -> dict:
     if made != (0, TRAIN_STEPS):
         fail(f"the timed steps made {made[0]} captures and {made[1]} "
              f"replays of the critic updates, expected (0, {TRAIN_STEPS})")
-    last_t, last_k1, last_k2, last_r = t0, 0, 0, replays
-    for step, t, k1, k2, r, metrics in log:
+    last_t, last_k1, last_k2, last_ln, last_r = t0, 0, 0, 0, replays
+    for step, t, k1, k2, n_ln, r, metrics in log:
         bad = [k for k, v in metrics.items() if not np.isfinite(v)]
         if bad:
             fail(f"step {step}: metrics {bad} are not finite")
@@ -988,13 +1271,19 @@ def training_path_phase() -> dict:
             fail(f"step {step}: convlstm_seq launched {k1 - last_k1} times "
                  f"(expected {want}: {r - last_r} replays of the critic "
                  f"updates) and spatial_ks {k2 - last_k2} (expected 1)")
+        want = ln_launches(cfg.model, 1, r - last_r)
+        if n_ln - last_ln != want:
+            fail(f"step {step}: layer_norm launched {n_ln - last_ln} times "
+                 f"(expected {want}: {r - last_r} replays of the critic "
+                 f"updates)")
         shown = {k: round(metrics[k], 4) for k in (
             "g_loss", "d_loss", "d_gradient_pen", "g_ws_rmse",
             "g_spatial_ks")}
         print(f"train step {step}: {t - last_t:.3f} s, convlstm_seq "
               f"launches {k1 - last_k1}, critic graph replays "
-              f"{r - last_r}, spatial_ks launches {k2 - last_k2}, {shown}")
-        last_t, last_k1, last_k2, last_r = t, k1, k2, r
+              f"{r - last_r}, spatial_ks launches {k2 - last_k2}, "
+              f"layer_norm launches {n_ln - last_ln}, {shown}")
+        last_t, last_k1, last_k2, last_ln, last_r = t, k1, k2, n_ln, r
     seconds_per_step = (log[-1][1] - t0) / TRAIN_STEPS
     for name, old in before.items():
         new = export_flax_variables(getattr(net, name))
@@ -1350,6 +1639,7 @@ def train_entry_phase() -> dict:
     from windtpu_torch import cli
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.ops.layer_norm import layer_norm
     from windtpu_torch.train.wgan_gp import critic_graph
 
     ckpt_root = ROOT / "build" / "chip_smoke_train_main"
@@ -1363,11 +1653,11 @@ def train_entry_phase() -> dict:
     run(1)                                               # warm-up
     walls = {}
     for steps in TRAIN_MAIN_STEPS:
-        convlstm_seq.launches = spatial_ks.launches = 0
+        convlstm_seq.launches = spatial_ks.launches = layer_norm.launches = 0
         captures, replays = critic_graph.captures, critic_graph.replays
         torch.cuda.reset_peak_memory_stats()
         state, walls[steps], k1 = timed(lambda: run(steps))
-        k2 = spatial_ks.launches
+        k2, n_ln = spatial_ks.launches, layer_norm.launches
         made = (critic_graph.captures - captures,
                 critic_graph.replays - replays)
         if state.step != steps:
@@ -1376,21 +1666,25 @@ def train_entry_phase() -> dict:
         # A new state: its first step captures the critic updates, the
         # others replay them.
         want = k1_launches(seq, steps, steps - 1)
-        if k1 != want or k2 != steps or made != (1, steps - 1):
+        want_ln = ln_launches(state.generator.config, steps, steps - 1)
+        if (k1 != want or k2 != steps or n_ln != want_ln
+                or made != (1, steps - 1)):
             fail(f"train_main, {steps} steps: convlstm_seq launched {k1} "
                  f"times (expected {want}), spatial_ks {k2} (expected "
-                 f"{steps}), critic graph captures and replays {made} "
-                 f"(expected {(1, steps - 1)})")
+                 f"{steps}), layer_norm {n_ln} (expected {want_ln}), "
+                 f"critic graph captures and replays {made} (expected "
+                 f"{(1, steps - 1)})")
         print(f"train_main --synthetic, batch 16 x T=6 x 32 px, F=128, "
               f"{steps} steps: {walls[steps]:.3f} s, convlstm_seq launches "
               f"{k1}, critic graph captures {made[0]} and replays "
-              f"{made[1]}, spatial_ks launches {k2}, peak memory allocated "
+              f"{made[1]}, spatial_ks launches {k2}, layer_norm launches "
+              f"{n_ln}, peak memory allocated "
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     a, b = TRAIN_MAIN_STEPS
     print(f"train_main: {(walls[b] - walls[a]) / (b - a):.4f} s per step "
           f"(the difference of the two runs over {b - a} steps)")
     shutil.rmtree(ckpt_root, ignore_errors=True)
-    return {"convlstm_seq": k1, "spatial_ks": k2}
+    return {"convlstm_seq": k1, "spatial_ks": k2, "layer_norm": n_ln}
 
 
 def fabricate_dem(path: Path, seed: int):
@@ -1623,9 +1917,10 @@ def prepare_path_phase() -> dict:
         return state, logged
 
     run(1)                                               # warm-up
-    walls, counts = {}, {"convlstm_seq": 0, "spatial_ks": 0}
+    walls, counts = {}, {"convlstm_seq": 0, "spatial_ks": 0,
+                         "layer_norm": 0}
     for steps in PREPARE_TRAIN_STEPS:
-        convlstm_seq.launches = spatial_ks.launches = 0
+        convlstm_seq.launches = spatial_ks.launches = layer_norm.launches = 0
         replays = critic_graph.replays
         torch.cuda.reset_peak_memory_stats()
         (state, logged), walls[steps], k1 = timed(lambda: run(steps))
@@ -1643,6 +1938,7 @@ def prepare_path_phase() -> dict:
                 and all(np.isfinite(v) for v in logged.values())):
             fail(f"train_main on prepared days: step 1 metrics {logged}")
         counts["convlstm_seq"] += k1
+        counts["layer_norm"] += layer_norm.launches
         print(f"train_main on the prepared days, batch 2 x T=24 x 96 px, "
               f"F=128, f32, reconstruction coefficient {RECO_COEFFICIENT}, "
               f"{steps} steps: {walls[steps]:.3f} s, convlstm_seq launches "
@@ -1836,6 +2132,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
     from windtpu_torch.core.mesh import all_reduce
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.ops.layer_norm import layer_norm
     from windtpu_torch.train.wgan_gp import critic_graph
 
     report = {"rank": rank}
@@ -1869,7 +2166,7 @@ def rank_main(job: str, rank: int, world: int, port: str, out: Path,
             seconds=end - t0, steps_seconds=end - starts[0][0],
             device=str(state.device), backend=dist.get_backend(),
             k1=convlstm_seq.launches, k2=spatial_ks.launches, steps=steps,
-            replays=critic_graph.replays,
+            ln=layer_norm.launches, replays=critic_graph.replays,
             peak_mib=torch.cuda.max_memory_allocated() / 2**20,
             all_reduce_bytes_per_step=all_reduce.bytes / steps,
             all_reduce_calls=len(spans), all_reduce_ms=sum(ms),
@@ -1998,8 +2295,8 @@ def multi_gpu_phase() -> dict:
     print(f"train_main, one process, run 2 vs run 1 (the card's run-to-run "
           f"spread), relative to each part's movement: "
           f"{describe(state_error(again, plain, start))}")
-    counts = {"convlstm_seq": 0, "spatial_ks": 0}
-    seq = 6
+    counts = {"convlstm_seq": 0, "spatial_ks": 0, "layer_norm": 0}
+    seq, model = 6, None
     problems = []
     runs = ([("nccl", 1, "nccl", ""), ("gloo_train", 2, "gloo", "")]
             + [(f"fault{i}", 2, "gloo", f)
@@ -2024,17 +2321,22 @@ def multi_gpu_phase() -> dict:
                   f" per rank, {MULTI_STEPS} steps: {rep['seconds']:.3f} s "
                   f"(process set-up included), peak memory allocated "
                   f"{rep['peak_mib']:.0f} MiB, convlstm_seq {rep['k1']}, "
-                  f"spatial_ks {rep['k2']}, all-reduce "
+                  f"spatial_ks {rep['k2']}, layer_norm {rep['ln']}, "
+                  f"all-reduce "
                   f"{rep['all_reduce_bytes_per_step'] / 2**20:.3f} MiB per "
                   f"step")
             want = k1_launches(seq, MULTI_STEPS, rep["replays"])
-            if rep["k1"] != want or rep["k2"] != MULTI_STEPS:
+            want_ln = ln_launches(model, MULTI_STEPS, rep["replays"])
+            if (rep["k1"] != want or rep["k2"] != MULTI_STEPS
+                    or rep["ln"] != want_ln):
                 problems.append(
                     f"train_main {backend} rank {rep['rank']}: convlstm_seq "
                     f"{rep['k1']} (expected {want}), "
-                    f"spatial_ks {rep['k2']} (expected {MULTI_STEPS})")
+                    f"spatial_ks {rep['k2']} (expected {MULTI_STEPS}), "
+                    f"layer_norm {rep['ln']} (expected {want_ln})")
             counts["convlstm_seq"] += rep["k1"]
             counts["spatial_ks"] += rep["k2"]
+            counts["layer_norm"] += rep["ln"]
         for r in range(1, world):
             differ = [k for k in plain
                       if not np.array_equal(states[r][k], states[0][k])]
@@ -2122,8 +2424,8 @@ def multi_card_phase() -> dict:
 
     short, long = TRAIN_MAIN_STEPS
     start, plain = single(0, "start"), single(short, "plain")
-    counts = {"convlstm_seq": 0, "spatial_ks": 0}
-    seq, problems = 6, []
+    counts = {"convlstm_seq": 0, "spatial_ks": 0, "layer_norm": 0}
+    seq, model, problems = 6, None, []
     # (name, ranks, steps, fault); the first W-rank run starts as torchrun
     # starts ranks and also takes a make_sharded_train_step step.
     runs = [(f"nccl{w}x{n}", w, n, "") for w in sorted({1, 2, world})
@@ -2165,13 +2467,17 @@ def multi_card_phase() -> dict:
                 problems.append(f"rank {rep['rank']} of {w} ran on "
                                 f"{rep['device']} ({rep['backend']})")
             want = k1_launches(seq, steps, rep["replays"])
-            if rep["k1"] != want or rep["k2"] != steps:
+            want_ln = ln_launches(model, steps, rep["replays"])
+            if (rep["k1"] != want or rep["k2"] != steps
+                    or rep["ln"] != want_ln):
                 problems.append(
                     f"train_main nccl rank {rep['rank']} of {w}: "
                     f"convlstm_seq {rep['k1']} (expected {want}), "
-                    f"spatial_ks {rep['k2']} (expected {steps})")
+                    f"spatial_ks {rep['k2']} (expected {steps}), "
+                    f"layer_norm {rep['ln']} (expected {want_ln})")
             counts["convlstm_seq"] += rep["k1"]
             counts["spatial_ks"] += rep["k2"]
+            counts["layer_norm"] += rep["ln"]
         finals = [states] + ([[dict(np.load(work / name / f"sharded{r}.npz"))
                                for r in range(w)]] if main else [])
         for what, ranks in zip(("train_main", "make_sharded_train_step"),
@@ -2331,6 +2637,7 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
     from windtpu_torch.network import WindDownscalingGAN
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.ops.ks import spatial_ks
+    from windtpu_torch.ops.layer_norm import layer_norm
     from windtpu_torch.train.wgan_gp import (critic_graph, draw_step_noise,
                                              make_train_step)
     from windtpu_torch.weights import export_train_state, load_train_state
@@ -2354,7 +2661,7 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
     draws = draw_step_noise(cfg, batch[0].shape, batch[1].shape[-1], rng,
                             "cuda")
     seq = cfg.model.sequence_length
-    runs, total = {}, {"convlstm_seq": 0, "spatial_ks": 0}
+    runs, total = {}, {"convlstm_seq": 0, "spatial_ks": 0, "layer_norm": 0}
     # The peak of each part of the step: every optimizer update ends one
     # (the n_critic critic updates, then the generator's); the metric
     # recompute follows.
@@ -2378,7 +2685,7 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
         load_train_state(state, saved)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        convlstm_seq.launches = spatial_ks.launches = 0
+        convlstm_seq.launches = spatial_ks.launches = layer_norm.launches = 0
         replays = critic_graph.replays
         parts.clear()
         t0 = time.perf_counter()
@@ -2388,9 +2695,11 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
         seconds = time.perf_counter() - t0
         parts.append(torch.cuda.max_memory_allocated())
         mib = [b / 2**20 for b in parts]
-        k1, k2 = convlstm_seq.launches, spatial_ks.launches
+        k1, k2, n_ln = (convlstm_seq.launches, spatial_ks.launches,
+                        layer_norm.launches)
         total["convlstm_seq"] += k1
         total["spatial_ks"] += k2
+        total["layer_norm"] += n_ln
         written = {k: v for k, v in export_train_state(state).items()
                    if k.split("/")[0] in ("g_batch_stats", "g_spectral",
                                           "d_spectral")}
@@ -2400,9 +2709,12 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
         # earlier one ("False again") replays its graph.
         want_k1 = k1_launches(seq, 1, critic_graph.replays - replays,
                               extra=int(remat is True))
-        if k1 != want_k1 or k2 != 1:
+        want_ln = ln_launches(cfg.model, 1, critic_graph.replays - replays,
+                              remat, remat_gp)
+        if k1 != want_k1 or k2 != 1 or n_ln != want_ln:
             fail(f"remat {name}: convlstm_seq launched {k1} times "
-                 f"(expected {want_k1}), spatial_ks {k2} (expected 1)")
+                 f"(expected {want_k1}), spatial_ks {k2} (expected 1), "
+                 f"layer_norm {n_ln} (expected {want_ln})")
         bad = [k for k, v in metrics.items() if not np.isfinite(v)]
         if bad:
             fail(f"remat {name}: metrics {bad} are not finite")
@@ -2416,7 +2728,7 @@ def remat_pass(dtype: str, deterministic: bool, problems: list) -> dict:
               f"memory allocated {max(mib):.1f} MiB (critic updates "
               f"{critic}, generator update {mib[-2]:.1f}, "
               f"metrics {mib[-1]:.1f}), convlstm_seq launches {k1}, "
-              f"spatial_ks {k2}; against remat False: state written in the "
+              f"spatial_ks {k2}, layer_norm {n_ln}; against remat False: state written in the "
               f"forwards {worst(s_err)}, metrics {worst(m_err)}; relative "
               f"metric differences above 1e-6: "
               + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
@@ -2448,7 +2760,7 @@ def a13_path_phase() -> dict:
     from windtpu_torch.ops.convlstm import convlstm_seq
     from windtpu_torch.utils import profile_region
 
-    counts = {"convlstm_seq": 0, "spatial_ks": 0}
+    counts = {"convlstm_seq": 0, "spatial_ks": 0, "layer_norm": 0}
     problems = []
     for dtype, deterministic in (("bfloat16", False), ("float32", True)):
         for k, n in remat_pass(dtype, deterministic, problems).items():
@@ -2578,6 +2890,7 @@ PHASES = {
     "build": build_all,
     "kernel convlstm_seq": convlstm_kernel_phase,
     "kernel spatial_ks": ks_kernel_phase,
+    "kernel layer_norm": layer_norm_kernel_phase,
     "reference": reference_phase,
     "downscale path": downscale_path_phase,
     "training reference": training_reference_phase,
@@ -2636,7 +2949,8 @@ def main() -> int:
         return 0
 
     stats = {"convlstm_seq": results["kernel convlstm_seq"],
-             "spatial_ks": results["kernel spatial_ks"]}
+             "spatial_ks": results["kernel spatial_ks"],
+             "layer_norm": results["kernel layer_norm"]}
     streamed = results["streaming path"]
     paths = {"downscale": results["downscale path"],
              "train": results["training path"],

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from windtpu_torch.core.mesh import psum
 from windtpu_torch.ops import conv2d_grad
 from windtpu_torch.ops.convlstm import hard_sigmoid
+from windtpu_torch.ops.layer_norm import layer_norm
 
 Padding = Union[int, str]
 
@@ -326,7 +327,9 @@ class _LayerNormParams(nn.Module):
 
 
 class KerasLayerNorm(nn.Module):
-    """LayerNormalization over the channel axis, epsilon 1e-3."""
+    """LayerNormalization over the channel axis, epsilon 1e-3, on
+    :func:`windtpu_torch.ops.layer_norm.layer_norm` (the hand-written
+    kernels on a card, their plain versions on the CPU)."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -335,8 +338,8 @@ class KerasLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        return F.layer_norm(x.to(dt), (x.shape[-1],), self.ln.scale.to(dt),
-                            self.ln.bias.to(dt), eps=1e-3)
+        return layer_norm(x.to(dt), self.ln.scale.to(dt),
+                          self.ln.bias.to(dt), 1e-3)
 
 
 def convlstm_scan(zx: torch.Tensor, rk: torch.Tensor, *,
