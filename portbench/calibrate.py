@@ -1,40 +1,46 @@
 """The two readings each correctness limit is set from, at a cell's own
-size on the card, in one process:
+size on the card:
 
     python3 -m portbench.calibrate --workload <cell> --seeds 12 \
         --faults half_batch state train_answer
 
 prints one JSON line per run: the program's numbers on ``--seeds`` seeds
-(the cell's driver with a 1-second window; the numbers come from the
-checked steps or the sampled days), the control's (``portbench.control``)
-on 3 seeds, and each named fault of ``portbench.faults`` planted in the
-program on 3 seeds.  The lower reading of a number is the largest sound
-one; the upper the smallest control reading 3x the lower or more, or
-fault reading 10x (a state left unchanged: 3x).  The benchmark's runs
-never run it.
+(a run of the cell with a 1-second window, in a process of its own as
+the benchmark starts it; the numbers come from the checked steps or the
+sampled days), each named fault of ``portbench.faults`` planted in the
+program (in every rank of a multi-card cell) on 3 seeds, then the
+control's (``portbench.control``, in this process) on 3 seeds.  The
+lower reading of a number is the largest sound one; the upper the
+smallest control reading 3x the lower or more, or fault reading 10x (a
+state left unchanged: 3x).  The benchmark's runs never run it.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
+import subprocess
 import sys
-import time
 
 import torch
 
 from portbench import control
 from portbench import harness as H
-from portbench.faults import planted
 
 
 def program(cell: H.Cell, seed: int, fault=None) -> dict:
-    driver = H.driver_module(cell.driver)
-    with contextlib.redirect_stdout(sys.stderr), \
-            (planted(fault) if fault else contextlib.nullcontext()):
-        out = driver.run(cell, seed, 1.0, False, time.perf_counter())
-    return {c.name: c.value for c in out.checks}
+    """The compared numbers of one run, or its exit code where it ended
+    without a result."""
+    args = [sys.executable, "-m", "portbench.run", "--workload", cell.name,
+            "--seed", str(seed), "--seconds", "1", "--trace", "0"]
+    if fault:
+        args += ["--fault", fault]
+    out = subprocess.run(args, cwd=H.ROOT, stdout=subprocess.PIPE,
+                         text=True)
+    if out.returncode:
+        return {"exit": out.returncode}
+    checks = json.loads(out.stdout.strip().splitlines()[-1])["checks"]
+    return {k: c["value"] for k, c in checks.items()}
 
 
 def main(argv=None) -> int:
@@ -56,14 +62,14 @@ def main(argv=None) -> int:
     for i in range(args.seeds):
         seed = args.first_seed + 7919 * i
         line("program", seed, program(cell, seed))
-    for i in range(3):
-        seed = args.first_seed + 10 ** 8 + 7919 * i
-        line("control", seed, control.numbers(cell, seed, device,
-                                              control.lower(cell)))
     for fault in args.faults:
         for i in range(3):
             seed = args.first_seed + 2 * 10 ** 8 + 7919 * i
             line(fault, seed, program(cell, seed, fault))
+    for i in range(3):
+        seed = args.first_seed + 10 ** 8 + 7919 * i
+        line("control", seed, control.numbers(cell, seed, device,
+                                              control.lower(cell)))
     return 0
 
 

@@ -8,9 +8,9 @@ own noise seed, and waits for each result (the in-memory Dataset; no file
 is written).  A sample of the days, drawn from the seed, is kept and,
 after the window, worked out again by the plain reference in float32.
 
-Trace runs time the host gate (``models.texture_gate.predict_log_energy_np``)
-and the engine (``api.downscale_field``, ending in a synchronise) and
-record K1's calls.
+Trace runs time the engine (``api.downscale_field``, ending in a
+synchronise) and record K1's calls; the gate is read from the program's
+own ``predict.gate`` span.
 """
 
 from __future__ import annotations
@@ -130,7 +130,6 @@ def run(cell: H.Cell, seed: int, seconds: float, trace: bool,
         t_start: float, device=None) -> H.Outcome:
     import windtpu_torch.api as api
     import windtpu_torch.models.generator as gen_mod
-    import windtpu_torch.models.texture_gate as gate_mod
 
     device = torch.device(device or "cuda")
     sync = _sync(device)
@@ -149,8 +148,6 @@ def run(cell: H.Cell, seed: int, seconds: float, trace: bool,
     with contextlib.ExitStack() as patches:
         if trace:
             patches.enter_context(spans.k1(gen_mod))
-            patches.enter_context(spans.wrap(
-                gate_mod, "predict_log_energy_np", "host_gate"))
             patches.enter_context(spans.wrap(api, "downscale_field",
                                              "engine", sync))
         net, flat, gate = network(cell, seed, device)

@@ -9,6 +9,12 @@ after the window gathers the peak memory (the fullest card) and the busy
 time (averaged over the cards), lets the others exit, and compares its
 checked steps with the reference on the whole global batch.  A rank that
 fails ends the run.
+
+On the cards every rank keeps to one intra-op thread, as ``torchrun``
+gives each of several processes (``OMP_NUM_THREADS=1``): each rank's host
+dispatches every kernel of its step, and the step waits at each
+all-reduce for the slowest host, so four pools of a thread a core on one
+host slow and scatter every step.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ def share(cell, seed, seconds, trace, t_start, rank, world, port,
     "cpu" runs the ranks over gloo on the CPU, as the tests do."""
     import torch.distributed as dist
 
+    if device == "cuda":
+        torch.set_num_threads(1)
     device, mesh = _join(rank, world, port, device)
 
     def stop(closed: bool) -> bool:
@@ -93,13 +101,18 @@ def run(cell: H.Cell, seed: int, seconds: float, trace: bool,
         t_start: float, device=None) -> H.Outcome:
     from windtpu_torch.utils.hostcpu import free_tcp_port
 
+    from portbench import faults
+
     world = cell.chips
     port = free_tcp_port()
     args = [sys.executable, "-m", "portbench.run", "--workload", cell.name,
             "--seed", str(seed), "--seconds", str(seconds), "--trace",
             str(int(trace)), "--world", str(world), "--port", str(port)]
+    if faults.ACTIVE:
+        args += ["--fault", faults.ACTIVE]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(args + ["--rank", str(r)], cwd=H.ROOT,
-                              stdout=sys.stderr, stderr=sys.stderr)
+                              env=env, stdout=sys.stderr, stderr=sys.stderr)
              for r in range(1, world)]
     threading.Thread(target=_watch, args=(procs,), daemon=True).start()
     try:

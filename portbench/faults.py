@@ -13,10 +13,17 @@ a ``with`` block.
 """
 
 import contextlib
+from typing import Optional
+
+# The fault planted now, if any: a multi-card run plants it in its other
+# ranks' processes too (``drivers/train_ranks.py``).
+ACTIVE: Optional[str] = None
+
 
 @contextlib.contextmanager
 def planted(fault: str):
     """Break the port in memory for the duration."""
+    global ACTIVE
     import windtpu_torch.core.mesh as mesh
     import windtpu_torch.infer.engine as engine
     import windtpu_torch.models.generator as generator
@@ -60,7 +67,9 @@ def planted(fault: str):
     else:
         raise ValueError(fault)
     setattr(owner, attr, broken)
+    ACTIVE = fault
     try:
         yield
     finally:
+        ACTIVE = None
         setattr(owner, attr, inner)

@@ -212,8 +212,12 @@ def _annotation(event) -> bool:
 
 
 def _is_launch(name: str) -> bool:
-    return name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
-                            "cudaMemset", "cuMemcpy", "cuMemset"))
+    """A host call that puts work on the device.  A replayed CUDA graph's
+    kernels carry the correlation id of its ``cudaGraphLaunch``, so they
+    join the host range that was open at the launch."""
+    return name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                            "cuGraphLaunch", "cudaMemcpy", "cudaMemset",
+                            "cuMemcpy", "cuMemset"))
 
 
 def trace_data(prof, window_s: float, units: int) -> TraceData:

@@ -1,7 +1,9 @@
 """K1's share of its roofline over the traced units' calls (forward only:
 the replayed backward is not K1): the least time of the calls' shapes
 (``costs/kernels.py``) over the device time of every kernel launched
-inside them."""
+inside them.  In training on one card the critic updates' K1 runs inside
+their replayed CUDA graph, outside any ``portbench.k1`` range, so only
+the eager calls (the generator update's and eval's forwards) are read."""
 
 from portbench import harness as H
 from portbench.costs.kernels import k1_bound_s

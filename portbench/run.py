@@ -36,6 +36,9 @@ def parse(argv=None):
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    # A fault of ``portbench.faults`` planted in the port for the run, to
+    # see ``correct`` come out false (``portbench.calibrate``).
+    p.add_argument("--fault", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -91,12 +94,17 @@ def main(argv=None) -> int:
         return 2
     driver = H.driver_module(cell.driver)
     trace = bool(args.trace)
+    fault = contextlib.nullcontext()
+    if args.fault:
+        from portbench.faults import planted
+
+        fault = planted(args.fault)
     if args.rank is not None:
-        with contextlib.redirect_stdout(sys.stderr):
+        with contextlib.redirect_stdout(sys.stderr), fault:
             driver.rank_main(cell, args.seed, args.seconds, trace, T_START,
                              args.rank, args.world, args.port)
         return 0
-    with contextlib.redirect_stdout(sys.stderr):
+    with contextlib.redirect_stdout(sys.stderr), fault:
         outcome = driver.run(cell, args.seed, args.seconds, trace, T_START)
         res = result(cell, outcome, trace)
     loaded = H.forbidden_modules(sys.modules)

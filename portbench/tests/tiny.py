@@ -10,13 +10,7 @@ from portbench import harness as H
 
 
 def cell(name: str) -> H.Cell:
-    """The cell ``name`` cut to a tiny size; ``train_main.dp4`` is
-    train_main.synthetic over ranks (the ``train_ranks`` driver)."""
-    if name == "train_main.dp4":
-        c = cell("train_main.synthetic")
-        c.spec.update(chips=4, driver="train_ranks",
-                      end_to_end=["dp_step_s"])
-        return H.Cell("tiny.train_main.dp4", c.spec, c.config)
+    """The cell ``name`` cut to a tiny size."""
     c = H.load_cell(name)
     cfg = copy.deepcopy(c.config)
     spec = copy.deepcopy(c.spec)
